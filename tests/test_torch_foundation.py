@@ -1,0 +1,130 @@
+"""The port's foundation modules vs the JAX package on identical inputs:
+grid centers, cameras, the synthetic scene and silhouettes, and the
+numpy converters between the two packages' states and cameras."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vacancy_tpu import camera as jcam
+from vacancy_tpu import grid as jgrid
+from vacancy_tpu import synthetic as jsyn
+from vacancy_tpu_torch import camera as tcam
+from vacancy_tpu_torch import grid as tgrid
+from vacancy_tpu_torch import synthetic as tsyn
+from vacancy_tpu_torch.config import INVALID_SDF
+
+GRIDS = [
+    ((-1.1, -1.1, -1.1), (1.1 + 0.4 * 2.2 / 48,) * 3, 2.2 / 48),
+    ((-270.0, -364.586151, -149.982697), (270.0, 170.542343, 277.329224),
+     10.0),
+    ((0.0, 0.0, 0.0), (20.4, 12.4, 9.4), 1.0),
+]
+
+
+@pytest.mark.parametrize("spec", GRIDS, ids=["turntable48", "bunny", "unit"])
+def test_axis_centers_bitwise(spec):
+    jg, tg = jgrid.GridSpec(*spec), tgrid.GridSpec(*spec)
+    assert tg.voxel_num == jg.voxel_num
+    assert tg.shape_zyx == jg.shape_zyx
+    for a in range(3):
+        np.testing.assert_array_equal(tg.axis_centers(a), jg.axis_centers(a))
+        assert tg.axis_centers(a).dtype == np.float32
+        c = tg.axis_centers_t(a, "cpu")
+        assert c.dtype == torch.float32
+        np.testing.assert_array_equal(c.numpy(), jg.axis_centers(a))
+
+
+def _cam_fields(cam):
+    return [np.asarray(cam.principal_point), np.asarray(cam.focal_length),
+            np.asarray(cam.c2w), np.asarray(cam.w2c)]
+
+
+def _assert_cam_equal(tc, jc):
+    assert (tc.width, tc.height) == (jc.width, jc.height)
+    for t, j in zip(
+        [tc.principal_point, tc.focal_length, tc.c2w, tc.w2c],
+        _cam_fields(jc),
+    ):
+        assert t.dtype == torch.float32
+        np.testing.assert_array_equal(t.cpu().numpy(), j)
+
+
+@pytest.mark.parametrize("kind", ["fov", "intrinsics", "default"])
+def test_pinhole_create_bitwise(kind):
+    c2w = jsyn.look_at([1.3, -0.4, 2.9], np.zeros(3))
+    kw = dict(c2w=c2w)
+    if kind == "fov":
+        kw["fov_y_deg"] = 45.0
+    elif kind == "intrinsics":
+        kw["principal_point"] = np.array([159.3, 127.65], np.float32)
+        kw["focal_length"] = np.array([258.65, 258.25], np.float32)
+    _assert_cam_equal(tcam.PinholeCamera.create(320, 240, **kw),
+                      jcam.PinholeCamera.create(320, 240, **kw))
+
+
+def test_turntable_cameras_and_stack_bitwise():
+    tc = tsyn.turntable_cameras(7, radius=3.2)
+    jc = jsyn.turntable_cameras(7, radius=3.2)
+    for a, b in zip(tc, jc):
+        _assert_cam_equal(a, b)
+    _assert_cam_equal(tcam.stack_cameras(tc), jcam.stack_cameras(jc))
+
+
+def test_camera_from_numpy_round_trip():
+    js = jcam.stack_cameras(jsyn.turntable_cameras(4, radius=2.0))
+    ts = tcam.from_numpy(*_cam_fields(js), js.width, js.height, "cpu")
+    _assert_cam_equal(ts, js)
+    with pytest.raises(ValueError):
+        tcam.stack_cameras([
+            tcam.PinholeCamera.create(320, 240),
+            tcam.PinholeCamera.create(160, 120),
+        ])
+
+
+def test_blob_spheres_bitwise():
+    for seed in (0, 3):
+        for t, j in zip(tsyn.blob_spheres(seed), jsyn.blob_spheres(seed)):
+            assert t.dtype == np.float32
+            np.testing.assert_array_equal(t, j)
+
+
+def test_render_silhouettes_matches_jax():
+    """Equal on >= 99.99% of pixels: the two frameworks sum the ray-sphere
+    dot products in different orders, so a pixel whose discriminant sits
+    within an ulp of 0 can flip."""
+    centers, radii = jsyn.blob_spheres(seed=3)
+    jm = jsyn.render_silhouettes(
+        jsyn.turntable_cameras(4, radius=3.2), centers, radii
+    )
+    tm = tsyn.render_silhouettes(
+        tsyn.turntable_cameras(4, radius=3.2), centers, radii
+    )
+    assert tm.dtype == torch.uint8 and tuple(tm.shape) == jm.shape
+    tm = tm.numpy()
+    assert set(np.unique(tm)) <= {0, 255}
+    assert 0.05 < (tm == 255).mean() < 0.95
+    assert (tm == jm).mean() >= 0.9999
+
+
+def test_state_numpy_round_trip():
+    spec = tgrid.GridSpec((0.0, 0.0, 0.0), (5.4, 4.4, 3.4), 1.0)
+    st = tgrid.VoxelGridState.create(spec, "cpu")
+    js = jgrid.VoxelGridState.create(jgrid.GridSpec(*GRIDS[2]))
+    assert tuple(st.sdf.shape) == (3, 4, 5)
+    assert st.sdf.dtype == torch.float32 and st.update_num.dtype == torch.int32
+    assert bool((st.sdf == float(INVALID_SDF)).all())
+    assert not bool(st.update_num.any())
+
+    rng = np.random.default_rng(0)
+    sdf = rng.normal(size=js.sdf.shape).astype(np.float32)
+    un = rng.integers(0, 9, size=js.sdf.shape).astype(np.int32)
+    js = jgrid.VoxelGridState(sdf=jnp.asarray(sdf), update_num=jnp.asarray(un))
+    ts = tgrid.state_from_numpy(np.asarray(js.sdf), np.asarray(js.update_num),
+                                "cpu")
+    s2, u2 = tgrid.state_to_numpy(ts)
+    np.testing.assert_array_equal(s2, sdf)
+    np.testing.assert_array_equal(u2, un)
+    with pytest.raises(ValueError):
+        tgrid.state_from_numpy(sdf, un[:1], "cpu")

@@ -1,0 +1,21 @@
+"""vacancy_tpu_torch: the shape-from-silhouette engine on PyTorch and CUDA.
+
+A port of ``vacancy_tpu`` (JAX on a TPU) to PyTorch on one NVIDIA H100:
+the same grid state, cameras and options, plain PyTorch for the tensor
+code, and hand-written CUDA kernels (``csrc/``) where the JAX package
+wrote Pallas kernels. It imports no JAX; each module's counterpart sits
+under the same path in ``vacancy_tpu``.
+"""
+
+from .camera import PinholeCamera, stack_cameras
+from .config import (
+    INVALID_SDF,
+    SdfInterpolation,
+    UpdateOutsideImage,
+    VoxelUpdate,
+    VoxelUpdateOption,
+)
+from .grid import GridSpec, VoxelGridState, state_from_numpy, state_to_numpy
+from .mesh import Mesh
+
+__version__ = "0.1.0"

@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+At first use, ``nvcc`` compiles every source under ``csrc/`` into one
+shared library with a plain C interface, bound here with ``ctypes``. The
+library is cached under ``build/vacancy_tpu_torch/<hash>/`` beside the
+package, keyed by a hash of the sources and the flags, so a checkout
+builds once. Nothing is built when this module is imported.
+
+Flags: ``-fmad=false`` and no ``--use_fast_math`` (IEEE division), so
+float expressions round exactly as the plain PyTorch versions do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "vacancy_tpu_torch"
+CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # when nvcc is not on PATH
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "vt_warp_fuse_planes": [_P] * 10 + [_I] * 15 + [_F, _F, _P],
+    "vt_mc_tiles": [_I, _I],
+    "vt_mc_count_scan": [_P] * 5 + [_I] * 3 + [_F, _I] + [_P] * 5,
+    "vt_mc_emit": [_P] * 5 + [_I] * 3 + [_F, _I] + [_P] * 10,
+}
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists(CUDA_NVCC):
+        nvcc = CUDA_NVCC
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources if no cached library matches them; returns the
+    library path. Raises RuntimeError with nvcc's output on failure."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / "libvacancy_kernels.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    (out_dir / "build.log").write_text(
+        f"{' '.join(cmd)}\nseconds {time.perf_counter() - t0:.3f}\n"
+        f"{proc.stdout}\n{proc.stderr}"
+    )
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The built library with every entry point's argtypes declared (each
+    returns an int: a cudaError_t, or a count for ``vt_mc_tiles``)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_log() -> str:
+    """nvcc's output for the cached build (register and shared-memory use
+    per kernel from ``-Xptxas -v``), or '' if not built."""
+    log = BUILD_ROOT / _digest() / "build.log"
+    return log.read_text() if log.exists() else ""
+
+
+def check_tensor(name: str, t, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape`` (what every kernel entry point takes)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {shape}, got {t.shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a non-zero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed with cudaError_t {err}")
+
+
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` as a raw pointer value."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
