@@ -128,3 +128,79 @@ def test_state_numpy_round_trip():
     np.testing.assert_array_equal(u2, un)
     with pytest.raises(ValueError):
         tgrid.state_from_numpy(sdf, un[:1], "cpu")
+
+
+@pytest.mark.parametrize("spec", GRIDS, ids=["turntable48", "bunny", "unit"])
+def test_centers_zyx_bitwise(spec):
+    t = tgrid.GridSpec(*spec).centers_zyx("cpu")
+    assert t.dtype == torch.float32
+    np.testing.assert_array_equal(
+        t.numpy(), np.asarray(jgrid.GridSpec(*spec).centers_zyx()))
+
+
+@pytest.mark.parametrize("length", [0.25, (1.0, 2.0, 0.5)],
+                         ids=["scalar", "xyz"])
+def test_make_cube_matches_jax(length):
+    from vacancy_tpu import mesh as jmesh
+    from vacancy_tpu_torch import mesh as tmesh
+
+    t, j = tmesh.make_cube(length), jmesh.make_cube(length)
+    np.testing.assert_array_equal(t.vertices, j.vertices)
+    np.testing.assert_array_equal(t.faces, j.faces)
+
+
+def test_ortho_camera_matches_jax():
+    """create / with_c2w fields bitwise; projection, unprojection and ray
+    directions bitwise; the two products (world_to_camera, ray origins)
+    within two ulp of their largest value, as CPU matmuls may sum in
+    another order."""
+    c2w = jsyn.look_at([0.8, -2.5, 1.9], np.array([0.1, 0.2, -0.3]))
+    jc = jcam.OrthoCamera.create(64, 48, c2w=c2w)
+    tc = tcam.OrthoCamera.create(64, 48, c2w=c2w)
+    c2w2 = jsyn.look_at([-1.5, 0.4, 2.2], np.zeros(3))
+    jc2, tc2 = jc.with_c2w(c2w2), tc.with_c2w(c2w2)
+    for t, j in ((tc, jc), (tc2, jc2),
+                 (tcam.ortho_from_numpy(np.asarray(jc2.c2w),
+                                        np.asarray(jc2.w2c), 64, 48, "cpu"),
+                  jc2)):
+        assert (t.width, t.height) == (j.width, j.height)
+        np.testing.assert_array_equal(t.c2w.numpy(), np.asarray(j.c2w))
+        np.testing.assert_array_equal(t.w2c.numpy(), np.asarray(j.w2c))
+
+    rng = np.random.default_rng(2)
+    pts = rng.uniform(-3, 3, size=(5, 7, 3)).astype(np.float32)
+    uv = rng.uniform(0, 64, size=(5, 7, 2)).astype(np.float32)
+    depth = rng.uniform(0.5, 4, size=(5, 7)).astype(np.float32)
+
+    def close(t, j):
+        j = np.asarray(j)
+        assert t.shape == j.shape
+        np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                                   atol=2 * np.spacing(np.abs(j).max()))
+
+    pc = tc2.world_to_camera(torch.from_numpy(pts))
+    close(pc, jc2.world_to_camera(jnp.asarray(pts)))
+    (tuv, td), (juv, jd) = tc2.project(pc), jc2.project(jnp.asarray(pc))
+    np.testing.assert_array_equal(tuv.numpy(), np.asarray(juv))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(
+        tc2.unproject(torch.from_numpy(uv), torch.from_numpy(depth)).numpy(),
+        np.asarray(jc2.unproject(jnp.asarray(uv), jnp.asarray(depth))))
+    np.testing.assert_array_equal(tc2.ray_c(torch.from_numpy(uv)).numpy(),
+                                  np.asarray(jc2.ray_c(jnp.asarray(uv))))
+    (to, td), (jo, jd) = (tc2.ray_w(torch.from_numpy(uv)),
+                          jc2.ray_w(jnp.asarray(uv)))
+    close(to, jo)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+def test_stack_cameras_takes_either_type_not_both():
+    ortho = [tcam.OrthoCamera.create(32, 24, c2w=jsyn.look_at(
+        [0.0, 0.0, -2.0 - i], np.zeros(3))) for i in range(3)]
+    st = tcam.stack_cameras(ortho)
+    assert isinstance(st, tcam.OrthoCamera) and st.w2c.shape == (3, 4, 4)
+    j = jcam.stack_cameras([jcam.OrthoCamera.create(32, 24, c2w=jsyn.look_at(
+        [0.0, 0.0, -2.0 - i], np.zeros(3))) for i in range(3)])
+    np.testing.assert_array_equal(st.w2c.numpy(), np.asarray(j.w2c))
+    with pytest.raises(ValueError, match="one type"):
+        tcam.stack_cameras([ortho[0], tcam.PinholeCamera.create(32, 24)])

@@ -4,8 +4,9 @@ This file imports no JAX, so it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
-There both kernels must agree with their plain versions bit for bit (the
-kernels are built with -fmad=false and IEEE division). On a machine
+There every kernel must agree with its plain version bit for bit (the
+kernels are built with -fmad=false and IEEE division), and the two-pass
+warp engine through kernel C with the fused warp kernel. On a machine
 without a card the ``cuda`` tests skip; the rest check that the wrappers
 never run anything but the plain version on a CPU tensor and refuse any
 other device, and that a missing nvcc is an error, not a fallback.
@@ -18,8 +19,9 @@ import torch
 from vacancy_tpu_torch import _kernels, profile_turntable
 from vacancy_tpu_torch import config as cfg
 from vacancy_tpu_torch.grid import GridSpec, VoxelGridState
-from vacancy_tpu_torch.ops import mc_fused, warp_fused
+from vacancy_tpu_torch.ops import fusion_warp, mc_fused, warp_fused
 from vacancy_tpu_torch.ops.warp_fused import warp_fuse_planes_plain
+from vacancy_tpu_torch.ops.warp_gather import interp_rows, interp_rows_plain
 from vacancy_tpu_torch.ops.sdf2d import make_signed_distance_field
 from vacancy_tpu_torch.pipeline import turntable_masks
 
@@ -45,6 +47,16 @@ def _warp_case(shape, n_views, device):
                                   cams.focal_length, imgs]
 
 
+def _rows_case(share, device, n=3, r=8, w=40, t=16, seed=0):
+    """Random tables and positions over [-1, w], ends included."""
+    rng = np.random.default_rng(seed)
+    tables = rng.normal(size=(1 if share else n, r, w)).astype(np.float32)
+    pos = rng.uniform(-1.0, w, size=(n, r, t)).astype(np.float32)
+    pos[..., 0], pos[..., -1] = -1.0, float(w)
+    return (torch.from_numpy(tables).to(device),
+            torch.from_numpy(pos).to(device))
+
+
 def _mc_case(shape, device, seed=5):
     nz, ny, nx = shape
     rng = np.random.default_rng(seed)
@@ -63,6 +75,9 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
         warp_fused.warp_fuse_planes(*args, cfg.VoxelUpdateOption(), True)
     with pytest.raises(ValueError, match="CUDA"):
         mc_fused.marching_cubes_fused(*args[:5])
+    tables, pos = _rows_case(True, "meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        interp_rows(tables, pos, tables.shape[2], share_table=True)
 
 
 def test_wrappers_on_cpu_equal_the_plain_versions():
@@ -89,9 +104,55 @@ def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
         _kernels.build()
 
 
-def test_profile_refuses_a_cpu_device():
+_FAKE_NVCC = """#!{python}
+import sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+time.sleep(0.2)
+with open(out, "w") as f:
+    f.write(" ".join(sys.argv[1:]))
+"""
+
+
+def test_concurrent_builds_keep_to_their_own_files(monkeypatch, tmp_path):
+    """Two builds at once (a stand-in nvcc that only writes its -o file)
+    both finish, and leave the library and its log and nothing else."""
+    import sys
+    import threading
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_kernels, "BUILD_ROOT", tmp_path / "build")
+    libs, errors = [], []
+
+    def run():
+        try:
+            libs.append(_kernels.build())
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors and len(libs) == 2 and libs[0] == libs[1]
+    out_dir = libs[0].parent
+    assert sorted(p.name for p in out_dir.iterdir()) == [
+        "build.log", "libvacancy_kernels.so"]
+    assert "-shared" in libs[0].read_text()
+    assert all(src.name in _kernels.build_log()
+               for src in _kernels._sources())
+
+
+@pytest.mark.parametrize("facade", [False, True], ids=["turntable", "facade"])
+def test_profile_refuses_a_cpu_device(facade):
     with pytest.raises(ValueError, match="CUDA"):
-        profile_turntable.profile_turntable(8, 2, "cpu")
+        if facade:
+            profile_turntable.profile_facade(8, 2, 64, 48, "cpu")
+        else:
+            profile_turntable.profile_turntable(8, 2, "cpu")
 
 
 @pytest.fixture
@@ -173,6 +234,18 @@ def test_profile_sees_both_kernels_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_profile_facade_sees_kernel_c_on_gpu(cuda_device):
+    """Views of 2000 rows take the two-pass engine: the facade's profile
+    shows kernel C and no fused warp kernel."""
+    before = interp_rows.launches
+    out = profile_turntable.profile_facade(32, 2, 96, 2000, cuda_device)
+    names = " ".join(s["name"] for s in out["spans"])
+    assert "interp_rows" in names and "warp_fused" not in names
+    assert interp_rows.launches == before + 2 * (2 * 2)  # warm-up + profiled
+    assert 0 < out["device_s"] < out["wall_s"]
+
+
+@pytest.mark.cuda
 def test_mc_kernel_on_an_empty_gpu_grid(cuda_device):
     grid = GridSpec((0.0,) * 3, (9.4, 8.4, 7.4), 1.0)
     st = VoxelGridState.create(grid, cuda_device)
@@ -182,3 +255,106 @@ def test_mc_kernel_on_an_empty_gpu_grid(cuda_device):
     )
     assert all(t.numel() == 0 for t in k.as_tuple()[:8])
     assert int(k.plane_counts.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 8, 40, 16), (40, 2000, 50, 37)],
+                         ids=["small", "over-65535-rows"])
+@pytest.mark.parametrize("taps", [None, (5, 30)], ids=["full", "lo-hi"])
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "nn"])
+@pytest.mark.parametrize("share", [True, False], ids=["shared", "per-n"])
+def test_interp_rows_kernel_equals_plain_on_gpu(cuda_device, share, linear,
+                                                taps, shape):
+    n, r, w, t = shape
+    tables, pos = _rows_case(share, cuda_device, n, r, w, t)
+    lo, hi = taps or (0, None)
+    before = interp_rows.launches
+    k = interp_rows(tables, pos, w, linear, share, lo, hi)
+    p = interp_rows_plain(tables, pos, w, linear, share, lo, hi)
+    torch.cuda.synchronize()
+    assert interp_rows.launches == before + 1
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_interp_rows_refuses_bad_inputs_on_gpu(cuda_device):
+    tables, pos = _rows_case(False, cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        interp_rows(tables.cpu(), pos, 40)
+    with pytest.raises(ValueError, match="CUDA"):
+        interp_rows(tables, pos.cpu(), 40)
+    with pytest.raises(TypeError, match="float32"):
+        interp_rows(tables, pos.double(), 40)
+    with pytest.raises(ValueError, match="shape"):
+        interp_rows(tables, pos, 40, share_table=True)
+    with pytest.raises(ValueError, match="taps"):
+        interp_rows(tables, pos, 40, lo=12, hi=11)
+    with pytest.raises(ValueError, match="taps"):
+        interp_rows(tables, pos, 40, hi=40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [True, False], ids=["bilinear", "nn"])
+@pytest.mark.parametrize("rule", ["MAX", "WEIGHTED_AVERAGE"])
+def test_two_pass_engine_equals_fused_kernel_on_gpu(cuda_device, rule,
+                                                    linear):
+    """The two-pass engine through kernel C and the fused warp kernel
+    compute the same expressions: bitwise equal at 240 rows. The fused
+    kernel's plain version launches neither kernel."""
+    args = _warp_case((20, 26, 37), 5, cuda_device)
+    opt = cfg.VoxelUpdateOption(
+        voxel_update=cfg.VoxelUpdate[rule], use_truncation=True,
+        truncation_band=0.05, update_outside=cfg.UpdateOutsideImage.MAX)
+    before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    cs, cu = fusion_warp.warp_fold(*args, opt, linear, None, interp_rows)
+    assert interp_rows.launches == before[1] + 2 * 5
+    ks, ku = warp_fused.warp_fuse_planes(*args, opt, linear)
+    assert warp_fused.warp_fuse_planes.launches == before[0] + 1
+    after = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    ps, pu = warp_fuse_planes_plain(*args, opt, linear)
+    torch.cuda.synchronize()
+    assert (warp_fused.warp_fuse_planes.launches,
+            interp_rows.launches) == after
+    for s, u in ((cs, cu), (ps, pu)):
+        assert torch.equal(u, ku)
+        assert torch.equal(s.view(torch.int32), ks.view(torch.int32))
+    assert bool((ku != args[1]).any())
+
+
+def _tall_case(device, h=2160, w=480, n_views=2):
+    """An 8 x 9 x 10 grid seen by cameras with images of ``h`` rows."""
+    rng = np.random.default_rng(3)
+    grid = GridSpec((-1.0,) * 3, (1.0, 0.9, 0.8), 0.1)
+    w2c = np.tile(np.eye(4, dtype=np.float32), (n_views, 1, 1))
+    w2c[:, 2, 3] = [3.0, 3.5][:n_views]
+    pp = np.tile(np.float32([(w - 1) / 2, (h - 1) / 2]), (n_views, 1))
+    fl = np.full((n_views, 2), 900.0, np.float32)
+    imgs = rng.normal(size=(n_views, h, w)).astype(np.float32)
+    return grid, [torch.from_numpy(a).to(device) for a in (w2c, pp, fl,
+                                                           imgs)]
+
+
+@pytest.mark.cuda
+def test_tall_views_take_the_two_pass_engine_on_gpu(cuda_device):
+    """2160 rows exceed the fused kernel's shared memory on an H100:
+    carve_views_warp picks the two-pass engine (kernel C) by shape, and
+    the fused kernel's wrapper refuses such views with the row limit."""
+    grid, (w2c, pp, fl, imgs) = _tall_case(cuda_device)
+    optin = warp_fused.smem_optin_bytes(cuda_device)
+    assert not warp_fused.fused_fits(2160, optin)
+    st = VoxelGridState.create(grid, cuda_device)
+    before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    out = fusion_warp.carve_views_warp(st, grid, w2c, pp, fl, imgs)
+    assert warp_fused.warp_fuse_planes.launches == before[0]
+    assert interp_rows.launches == before[1] + 2 * 2
+    centers = [grid.axis_centers_t(a, cuda_device) for a in range(3)]
+    ps, pu = warp_fuse_planes_plain(st.sdf, st.update_num, *centers, w2c, pp,
+                                    fl, imgs, cfg.VoxelUpdateOption(), True)
+    torch.cuda.synchronize()
+    assert torch.equal(out.update_num, pu) and bool((pu > 0).any())
+    assert torch.equal(out.sdf.view(torch.int32), ps.view(torch.int32))
+    limit = warp_fused.max_fused_rows(optin)
+    with pytest.raises(ValueError, match=f"at most {limit} rows"):
+        warp_fused.warp_fuse_planes(st.sdf, st.update_num, *centers, w2c, pp,
+                                    fl, imgs, cfg.VoxelUpdateOption(), True)
+    assert warp_fused.warp_fuse_planes.launches == before[0]

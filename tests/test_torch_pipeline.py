@@ -136,7 +136,7 @@ def test_ply_ascii_and_binary_round_trip(tmp_path):
 
 
 def test_port_imports_no_jax():
-    code = ("import vacancy_tpu_torch.pipeline, sys; "
+    code = ("import vacancy_tpu_torch.pipeline, vacancy_tpu_torch.carver, sys; "
             "assert not any(m.startswith('jax') for m in sys.modules), "
             "[m for m in sys.modules if m.startswith('jax')]")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

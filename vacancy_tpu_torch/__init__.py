@@ -7,11 +7,13 @@ wrote Pallas kernels. It imports no JAX; each module's counterpart sits
 under the same path in ``vacancy_tpu``.
 """
 
-from .camera import PinholeCamera, stack_cameras
+from .camera import OrthoCamera, PinholeCamera, stack_cameras
+from .carver import VoxelCarver
 from .config import (
     INVALID_SDF,
     SdfInterpolation,
     UpdateOutsideImage,
+    VoxelCarverOption,
     VoxelUpdate,
     VoxelUpdateOption,
 )

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles every source under ``csrc/`` into one
-shared library with a plain C interface, bound here with ``ctypes``. The
+At first use, ``nvcc`` compiles every source under ``csrc/``, one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface, bound here with ``ctypes``. The
 library is cached under ``build/vacancy_tpu_torch/<hash>/`` beside the
 package, keyed by a hash of the sources and the flags, so a checkout
 builds once. Nothing is built when this module is imported.
@@ -28,7 +29,7 @@ BUILD_ROOT = _PKG.parent / "build" / "vacancy_tpu_torch"
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # when nvcc is not on PATH
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +37,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "vt_warp_fuse_planes": [_P] * 10 + [_I] * 15 + [_F, _F, _P],
+    "vt_interp_rows": [_P] * 3 + [_I] * 8 + [_P],
     "vt_mc_tiles": [_I, _I],
     "vt_mc_count_scan": [_P] * 5 + [_I] * 3 + [_F, _I] + [_P] * 5,
     "vt_mc_emit": [_P] * 5 + [_I] * 3 + [_F, _I] + [_P] * 10,
@@ -72,22 +74,38 @@ def build() -> Path:
         return lib
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    (out_dir / "build.log").write_text(
-        f"{' '.join(cmd)}\nseconds {time.perf_counter() - t0:.3f}\n"
-        f"{proc.stdout}\n{proc.stderr}"
-    )
-    os.replace(tmp, lib)
+    # objects and the library go to a directory of this process's own, so
+    # two processes building at once never touch each other's files; the
+    # finished library replaces `lib` in one rename
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        jobs = []
+        for src, obj in zip(_sources(), objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(f"{' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {log[-1]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        so = Path(tmp) / lib.name
+        cmd = [nvcc, "-shared", "-o", str(so), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        log.append(f"{' '.join(cmd)}\n"
+                   f"seconds {time.perf_counter() - t0:.3f}\n")
+        (Path(tmp) / "build.log").write_text("\n".join(log))
+        os.replace(Path(tmp) / "build.log", out_dir / "build.log")
+        os.replace(so, lib)
     return lib
 
 

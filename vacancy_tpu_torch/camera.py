@@ -1,4 +1,4 @@
-"""Pinhole cameras as small dataclasses of torch tensors.
+"""Pinhole and orthographic cameras as small dataclasses of torch tensors.
 
 Convention (reference ``camera.h:6-10``): OpenCV pinhole -- right-handed,
 z forward, y down, x right. ``c2w`` maps camera to world; ``w2c`` is its
@@ -9,7 +9,7 @@ inverse, computed in float64 on the host and then rounded to float32, as
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,34 +72,105 @@ class PinholeCamera:
         )
 
 
+def _f32(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device)
+
+
 def from_numpy(principal_point, focal_length, c2w, w2c, width: int,
                height: int, device) -> PinholeCamera:
     """A (possibly stacked) camera from numpy arrays, rounded to float32
     -- e.g. the fields of a JAX ``PinholeCamera`` through ``np.asarray``."""
-
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device)
-
     return PinholeCamera(
-        principal_point=t(principal_point),
-        focal_length=t(focal_length),
-        c2w=t(c2w),
-        w2c=t(w2c),
+        principal_point=_f32(principal_point, device),
+        focal_length=_f32(focal_length, device),
+        c2w=_f32(c2w, device),
+        w2c=_f32(w2c, device),
         width=int(width),
         height=int(height),
     )
 
 
-def stack_cameras(cameras: Sequence[PinholeCamera]) -> PinholeCamera:
-    """Stack N same-size cameras into one batched camera."""
+@dataclasses.dataclass
+class OrthoCamera:
+    """Orthographic camera (reference ``camera.h:114-135``).
+
+    Projection is the identity on camera-space x, y (camera.cc:196-212).
+    Leading batch dims allow a stacked multi-view camera.
+    """
+
+    c2w: torch.Tensor  # f32[..., 4, 4]
+    w2c: torch.Tensor  # f32[..., 4, 4]
+    width: int
+    height: int
+
+    @staticmethod
+    def create(width: int, height: int, c2w: Optional[np.ndarray] = None,
+               device="cpu") -> "OrthoCamera":
+        c2w = np.eye(4) if c2w is None else np.asarray(c2w, np.float64)
+        return ortho_from_numpy(c2w, _inverse_pose(c2w), width, height,
+                                device)
+
+    def with_c2w(self, c2w: np.ndarray) -> "OrthoCamera":
+        """Functional set_c2w: recomputes the w2c inverse
+        (camera.cc:39-42)."""
+        c2w = np.asarray(c2w, np.float64)
+        dev = self.c2w.device
+        return dataclasses.replace(self, c2w=_f32(c2w, dev),
+                                   w2c=_f32(_inverse_pose(c2w), dev))
+
+    def world_to_camera(self, points_w: torch.Tensor) -> torch.Tensor:
+        """Transform world points [..., 3] into camera space."""
+        r = self.w2c[..., :3, :3]
+        t = self.w2c[..., :3, 3]
+        return points_w @ r.transpose(-1, -2) + t
+
+    def project(self, points_c: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Camera-space points [..., 3] -> (image uv [..., 2], depth)."""
+        return points_c[..., :2], points_c[..., 2]
+
+    def unproject(self, uv: torch.Tensor, depth: torch.Tensor
+                  ) -> torch.Tensor:
+        """Image points + depth -> camera-space points."""
+        return torch.cat([uv, depth[..., None]], dim=-1)
+
+    def ray_c(self, uv: torch.Tensor) -> torch.Tensor:
+        """Camera-space ray directions: +z for every pixel."""
+        d = torch.zeros(uv.shape[:-1] + (3,), dtype=torch.float32,
+                        device=uv.device)
+        d[..., 2] = 1.0
+        return d
+
+    def ray_w(self, uv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """World-space ray (origin, direction) per pixel: origins offset
+        along the pose x/y axes (camera.cc:232-245)."""
+        rot = self.c2w[..., :3, :3]
+        off = torch.stack([uv[..., 0] - self.width * 0.5,
+                           uv[..., 1] - self.height * 0.5], dim=-1)
+        org = self.c2w[..., :3, 3] + off @ rot[..., :2].transpose(-1, -2)
+        return org, torch.broadcast_to(rot[..., :, 2], org.shape)
+
+
+def ortho_from_numpy(c2w, w2c, width: int, height: int,
+                     device) -> OrthoCamera:
+    """A (possibly stacked) orthographic camera from numpy arrays, rounded
+    to float32 -- e.g. the fields of a JAX ``OrthoCamera``."""
+    return OrthoCamera(c2w=_f32(c2w, device), w2c=_f32(w2c, device),
+                       width=int(width), height=int(height))
+
+
+Camera = Union[PinholeCamera, OrthoCamera]
+
+
+def stack_cameras(cameras: Sequence[Camera]) -> Camera:
+    """Stack N same-size cameras of one type into one batched camera."""
     w, h = cameras[0].width, cameras[0].height
     if any(c.width != w or c.height != h for c in cameras):
         raise ValueError("all cameras must share width/height to stack")
-    return PinholeCamera(
-        principal_point=torch.stack([c.principal_point for c in cameras]),
-        focal_length=torch.stack([c.focal_length for c in cameras]),
-        c2w=torch.stack([c.c2w for c in cameras]),
-        w2c=torch.stack([c.w2c for c in cameras]),
-        width=w,
-        height=h,
-    )
+    kind = type(cameras[0])
+    if any(type(c) is not kind for c in cameras):
+        raise ValueError("all cameras must be of one type to stack")
+    return kind(**{
+        f.name: torch.stack([getattr(c, f.name) for c in cameras])
+        for f in dataclasses.fields(kind) if f.name not in ("width", "height")
+    }, width=w, height=h)

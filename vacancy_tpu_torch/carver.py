@@ -1,0 +1,295 @@
+"""VoxelCarver facade -- the user-facing engine API
+(``vacancy_tpu/carver.py``).
+
+Mirrors the reference ``VoxelCarver`` (``include/vacancy/voxel_carver.h:
+95-118``): the carver owns a ``VoxelGridState`` on one torch device and
+each ``carve`` call folds one (or a batch of) views into it. The device
+is explicit, given to the constructor or to ``init``. Silhouettes and SDF
+images may be numpy arrays or tensors; cameras are moved to the carver's
+device; SDF images come back as numpy arrays, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .camera import Camera, OrthoCamera, stack_cameras
+from .config import SdfInterpolation, VoxelCarverOption, VoxelUpdateOption
+from .grid import GridSpec, VoxelGridState
+from .mesh import Mesh
+from .ops.extract_voxel import extract_voxel_mesh
+from .ops.fusion import carve_masks, carve_views
+from .ops.fusion_warp import carve_views_warp, carve_views_warp_ortho
+from .ops.marching_cubes import extract_mesh
+from .ops.sdf2d import make_signed_distance_field
+from .utils import LOGE
+from .utils.debug import assert_finite
+
+Roi = Optional[Tuple[int, int, int, int]]
+
+
+class VoxelCarver:
+    def __init__(self, option: Optional[VoxelCarverOption] = None,
+                 device=None):
+        self._option = option or VoxelCarverOption()
+        self._device = None if device is None else torch.device(device)
+        self._grid: Optional[GridSpec] = None
+        self._state: Optional[VoxelGridState] = None
+
+    @property
+    def option(self) -> VoxelCarverOption:
+        return self._option
+
+    def set_option(self, option: VoxelCarverOption) -> None:
+        self._option = option
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        return self._device
+
+    @property
+    def grid(self) -> GridSpec:
+        assert self._grid is not None, "call init() first"
+        return self._grid
+
+    @property
+    def state(self) -> VoxelGridState:
+        assert self._state is not None, "call init() first"
+        return self._state
+
+    @state.setter
+    def state(self, value: VoxelGridState) -> None:
+        self._state = value
+
+    def _effective_update_option(self) -> VoxelUpdateOption:
+        """The update option the engines see: configuring sdf_scale
+        (metric TSDF) switches the truncated-sample skip threshold to
+        world units (config.VoxelUpdateOption.metric_truncation)."""
+        opt = self._option.update_option
+        if self._option.sdf_scale is not None and not opt.metric_truncation:
+            opt = dataclasses.replace(opt, metric_truncation=True)
+        return opt
+
+    def init(self, device=None) -> bool:
+        """Validate options and allocate the grid on ``device`` (or the
+        constructor's) (voxel_carver.cc:375-392). Raises ValueError if no
+        device was given either way."""
+        if device is not None:
+            self._device = torch.device(device)
+        if self._device is None:
+            raise ValueError("VoxelCarver needs a device: pass it to the "
+                             "constructor or to init()")
+        try:
+            self._option.validate()
+        except ValueError as e:
+            LOGE("%s", e)
+            return False
+        self._grid = GridSpec(
+            bb_min=tuple(self._option.bb_min),
+            bb_max=tuple(self._option.bb_max),
+            resolution=float(self._option.resolution),
+        )
+        self._state = VoxelGridState.create(self._grid, self._device)
+        return True
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+        return t.to(self._device, dtype)
+
+    def _camera(self, camera: Camera) -> Camera:
+        return dataclasses.replace(camera, **{
+            f.name: getattr(camera, f.name).to(self._device)
+            for f in dataclasses.fields(camera)
+            if f.name not in ("width", "height")
+        })
+
+    @staticmethod
+    def _roi(camera: Camera, roi_min, roi_max) -> Roi:
+        if roi_min is None and roi_max is None:
+            return None
+        rmin = roi_min or (0, 0)
+        rmax = roi_max or (camera.width - 1, camera.height - 1)
+        return (int(rmin[0]), int(rmin[1]), int(rmax[0]), int(rmax[1]))
+
+    def _sdf_images(self, masks: torch.Tensor, roi: Roi,
+                    opt: VoxelUpdateOption) -> torch.Tensor:
+        return make_signed_distance_field(
+            masks, roi, minmax_normalize=self._option.sdf_minmax_normalize,
+            use_truncation=opt.use_truncation,
+            truncation_band=opt.truncation_band,
+            sdf_scale=self._option.sdf_scale,
+        )
+
+    # ------------------------------------------------------------------
+    # carve
+    # ------------------------------------------------------------------
+
+    def carve(
+        self,
+        camera: Camera,
+        silhouette=None,
+        sdf=None,
+        roi_min: Optional[Tuple[int, int]] = None,
+        roi_max: Optional[Tuple[int, int]] = None,
+        debug: bool = False,
+        engine: str = "exact",
+    ) -> Optional[np.ndarray]:
+        """Fuse one view. Pass either a silhouette mask (the 2D SDF is
+        computed and returned) or a precomputed SDF image.
+
+        Matches the reference Carve overloads (voxel_carver.cc:394-514).
+        engine: "exact" (default) samples the SDF per voxel with the
+        reference's semantics; "warp" runs the two-pass projective-warp
+        engine (sub-pixel approximation of the sampling; update rules,
+        skip masks and ROI semantics identical). With ``debug=True`` the
+        input SDF image and the resulting state are checked for NaN/Inf
+        (utils/debug.py)."""
+        if self._state is None:
+            LOGE("carve: voxel grid has not been initialized")
+            return None
+        if engine not in ("exact", "warp"):
+            raise ValueError(f"unknown engine {engine!r}")
+        camera = self._camera(camera)
+        roi = self._roi(camera, roi_min, roi_max)
+        opt = self._effective_update_option()
+        if debug and sdf is not None:
+            assert_finite("carve: input sdf image", sdf)
+        if sdf is None:
+            assert silhouette is not None, "need a silhouette or an sdf image"
+            if engine == "warp":
+                sdf_img = self._sdf_images(self._tensor(silhouette), roi, opt)
+                self._carve_warp_one(camera, sdf_img, roi, opt)
+                out = sdf_img
+            else:
+                self._state, sdf_images = carve_masks(
+                    self._state, self._grid, camera,
+                    self._tensor(silhouette), roi=roi, opt=opt,
+                    sdf_minmax_normalize=self._option.sdf_minmax_normalize,
+                    sdf_scale=self._option.sdf_scale, debug=debug,
+                )
+                out = sdf_images[0]
+        else:
+            out = self._tensor(sdf, torch.float32)
+            if engine == "warp":
+                self._carve_warp_one(camera, out, roi, opt)
+            else:
+                ortho = isinstance(camera, OrthoCamera)
+                zero2 = torch.zeros(2, dtype=torch.float32,
+                                    device=self._device)
+                self._state = carve_views(
+                    self._state, self._grid, camera.w2c,
+                    zero2 if ortho else camera.principal_point,
+                    zero2 if ortho else camera.focal_length, out, roi=roi,
+                    opt=opt, projection="ortho" if ortho else "pinhole",
+                    debug=debug,
+                )
+        if debug:
+            assert_finite("carve: fusion state sdf", self._state.sdf)
+        return out.cpu().numpy()
+
+    def _carve_warp_one(self, camera: Camera, sdf_img: torch.Tensor,
+                        roi: Roi, opt: VoxelUpdateOption) -> None:
+        """One view through the warp engine (pinhole or ortho), the
+        reference per-view Carve workflow (voxel_carver.cc:503-508) in the
+        warp formulation."""
+        linear = opt.sdf_interp == SdfInterpolation.BILINEAR
+        if isinstance(camera, OrthoCamera):
+            self._state = carve_views_warp_ortho(
+                self._state, self._grid, camera.w2c, sdf_img, opt=opt,
+                linear=linear, roi=roi,
+            )
+        else:
+            self._state = carve_views_warp(
+                self._state, self._grid, camera.w2c, camera.principal_point,
+                camera.focal_length, sdf_img, opt=opt, linear=linear,
+                roi=roi,
+            )
+
+    def carve_batch(
+        self,
+        cameras: Union[Camera, Sequence[Camera]],
+        silhouettes,
+        engine: str = "exact",
+        debug: bool = False,
+        roi_min: Optional[Tuple[int, int]] = None,
+        roi_max: Optional[Tuple[int, int]] = None,
+    ) -> np.ndarray:
+        """Fuse a batch of views in order (the reference's multi-view
+        Carve, voxel_carver.cc:516-528). Returns the per-view SDF images.
+
+        engine: "exact" samples the 2D SDF per voxel with the reference's
+        bilinear/NN semantics; "warp" runs the warp engine (the fused warp
+        kernel, or the two-pass engine for views taller than it takes and
+        for orthographic cameras; same ROI/skip-mask semantics).
+
+        roi_min/roi_max: one inclusive image-space window applied to
+        every view.
+
+        debug: NaN/Inf checks (utils/debug.py). The exact engine checks
+        each view's sampled distance and the state after each view; the
+        warp engine checks its input images and the resulting state."""
+        if self._state is None:
+            raise RuntimeError("carve_batch: grid not initialized")
+        if engine not in ("exact", "warp"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if not hasattr(cameras, "w2c"):  # a sequence of cameras
+            cameras = stack_cameras(list(cameras))
+        elif cameras.w2c.ndim == 2:  # one camera: a batch of one
+            cameras = stack_cameras([cameras])
+        camera = self._camera(cameras)
+        roi = self._roi(camera, roi_min, roi_max)
+        opt = self._effective_update_option()
+        masks = self._tensor(silhouettes)
+        if engine == "exact":
+            self._state, sdf_images = carve_masks(
+                self._state, self._grid, camera, masks, roi=roi, opt=opt,
+                sdf_minmax_normalize=self._option.sdf_minmax_normalize,
+                sdf_scale=self._option.sdf_scale, debug=debug,
+            )
+        else:
+            sdf_images = self._sdf_images(
+                masks[None] if masks.ndim == 2 else masks, roi, opt)
+            if debug:
+                assert_finite("carve_batch: 2D SDF images", sdf_images)
+            self._carve_warp_one(camera, sdf_images, roi, opt)
+        if debug:
+            assert_finite("carve_batch: fusion state sdf", self._state.sdf)
+        return sdf_images.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # extraction
+    # ------------------------------------------------------------------
+
+    def extract_voxel(self, inside_empty: bool = False) -> Mesh:
+        return extract_voxel_mesh(self.state, self.grid, inside_empty)
+
+    def extract_iso_surface(
+        self,
+        iso_level: float = 0.0,
+        linear_interp: bool = True,
+        debug: bool = False,
+        engine: str = "auto",
+    ) -> Mesh:
+        """Marching-cubes extraction (marching_cubes.cc:63-228 semantics)
+        through the fused MC kernel (its plain version on a CPU state).
+
+        engine: "auto" and "fused" take the fused kernel; the dense and
+        blocked XLA paths behind "xla" are not ported yet (ROADMAP Queue
+        1 item 2)."""
+        if engine == "xla":
+            raise NotImplementedError(
+                "extract_iso_surface(engine='xla'): the XLA marching-cubes "
+                "paths are not ported yet (ROADMAP Queue 1 item 2)")
+        if engine not in ("auto", "fused"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if debug:
+            assert_finite("extract: state sdf", self.state.sdf)
+        mesh = extract_mesh(self.state, self.grid, iso_level=iso_level,
+                            linear_interp=linear_interp)
+        if debug:
+            assert_finite("extract: vertices", mesh.vertices)
+        return mesh

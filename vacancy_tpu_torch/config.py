@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -65,3 +66,62 @@ class VoxelUpdateOption:
             raise ValueError("voxel_update_weight must be positive")
         if self.truncation_band <= 0.0:
             raise ValueError("truncation_band must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelCarverOption:
+    """Carver configuration (reference: voxel_carver.h:54-60).
+
+    ``sdf_scale`` extends the reference: when set, the 2D SDF images stay
+    metric -- pixel distances times this factor (world units per pixel at
+    the object's depth) instead of per-image minmax normalization -- and
+    ``truncation_band`` is in the same world units."""
+
+    bb_min: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    bb_max: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    resolution: float = 0.1
+    sdf_minmax_normalize: bool = True
+    update_option: VoxelUpdateOption = dataclasses.field(
+        default_factory=VoxelUpdateOption
+    )
+    sdf_scale: Optional[float] = None
+
+    def validate(self) -> None:
+        self.update_option.validate()
+        if self.resolution <= 0.0:
+            raise ValueError(f"resolution must be positive: {self.resolution}")
+        if self.sdf_scale is not None and self.sdf_scale <= 0.0:
+            raise ValueError(f"sdf_scale must be positive: {self.sdf_scale}")
+        bb_min = np.asarray(self.bb_min, dtype=np.float64)
+        bb_max = np.asarray(self.bb_max, dtype=np.float64)
+        if np.any(bb_max <= bb_min):
+            raise ValueError("input bounding box is invalid")
+
+
+def _from_fields(cls, other):
+    """An instance of the dataclass ``cls`` with the same-named fields of
+    ``other``: enums matched by ``.name``, nested options converted."""
+    kw, defaults = {}, cls()
+    for f in dataclasses.fields(cls):
+        v = getattr(other, f.name)
+        default = getattr(defaults, f.name)
+        if isinstance(default, enum.Enum):
+            v = type(default)[v.name]
+        elif dataclasses.is_dataclass(default):
+            v = _from_fields(type(default), v)
+        elif isinstance(default, tuple):
+            v = tuple(float(x) for x in v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def update_option_from(other) -> VoxelUpdateOption:
+    """The port's ``VoxelUpdateOption`` with the fields of ``other`` (e.g.
+    a ``vacancy_tpu.config.VoxelUpdateOption``); imports nothing of it."""
+    return _from_fields(VoxelUpdateOption, other)
+
+
+def carver_option_from(other) -> VoxelCarverOption:
+    """The port's ``VoxelCarverOption`` with the fields of ``other`` (e.g.
+    a ``vacancy_tpu.config.VoxelCarverOption``); imports nothing of it."""
+    return _from_fields(VoxelCarverOption, other)

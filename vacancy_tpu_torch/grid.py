@@ -81,6 +81,13 @@ class GridSpec:
         """``axis_centers`` as an f32 tensor on ``device``."""
         return torch.from_numpy(self.axis_centers(axis)).to(device)
 
+    def centers_zyx(self, device) -> torch.Tensor:
+        """Voxel centers as f32[Z, Y, X, 3] (xyz in the last axis) on
+        ``device``."""
+        cx, cy, cz = (self.axis_centers_t(a, device) for a in range(3))
+        zz, yy, xx = torch.meshgrid(cz, cy, cx, indexing="ij")
+        return torch.stack([xx, yy, zz], dim=-1)
+
 
 @dataclasses.dataclass
 class VoxelGridState:

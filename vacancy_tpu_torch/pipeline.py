@@ -21,7 +21,12 @@ from typing import Optional
 import torch
 
 from .camera import stack_cameras
-from .config import SdfInterpolation, VoxelUpdate, VoxelUpdateOption
+from .config import (
+    SdfInterpolation,
+    VoxelCarverOption,
+    VoxelUpdate,
+    VoxelUpdateOption,
+)
 from .grid import GridSpec, VoxelGridState
 from .ops.fusion_warp import carve_views_warp
 from .ops.marching_cubes import extract_mesh
@@ -70,6 +75,20 @@ def turntable_inputs(n: int, n_views: int, tsdf: bool, device):
         truncation_band=opt.truncation_band,
     )
     return turntable_grid(n), opt, cams, sdf_images
+
+
+def facade_inputs(n: int, n_views: int, width: int, height: int, device):
+    """(VoxelCarverOption, cameras, uint8 silhouettes [V, height, width])
+    for ``VoxelCarver``: the turntable's n^3 grid, WAVG + truncation band
+    0.05, and ``n_views`` orbiting cameras of ``width`` x ``height`` that
+    see the same blob."""
+    grid = turntable_grid(n)
+    opt = VoxelCarverOption(bb_min=grid.bb_min, bb_max=grid.bb_max,
+                            resolution=grid.resolution,
+                            update_option=turntable_option(tsdf=True))
+    cams = turntable_cameras(n_views, 3.2, width=width, height=height,
+                             device=device)
+    return opt, cams, render_silhouettes(cams, *blob_spheres(seed=3))
 
 
 def _sync(device: torch.device) -> None:
