@@ -36,11 +36,38 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      the fused warp kernel 0 (2160 rows exceed its shared memory). Then
      the carve against the plain two-pass fold (bitwise) and plain MC (as
      many vertices).
-  9. 128^3 x 8 orthographic views through interp_rows vs the plain fold
-     (bitwise); a rolled orthographic camera on the exact engine (the
-     interp_rows counter does not move); the exact engine vs the warp
-     engine at 256^3 x 8 turntable views (the JAX package's
+  9. 128^3 x 8 orthographic views of 192 rows: the fused warp kernel with
+     orthographic rows vs its plain version (update_num exact, sdf bitwise)
+     for MAX/WAVG x NN/bilinear; the two-pass engine (interp_rows and the
+     behind-camera mask from the real z rows) vs the same plain fold,
+     bitwise, and both timed; the facade launches the fused kernel and not
+     interp_rows for them, and interp_rows for a 2160-row orthographic
+     view, whose state is held against the plain fold too; a rolled ortho
+     camera on the exact engine (neither counter moves); the exact engine
+     vs the warp engine at 256^3 x 8 turntable views (the JAX package's
      test_warp_close_to_exact bar).
+ 10. the probe kernel vs its plain version, bitwise; its first launch timed.
+ 11. the MC kernel's passes alone: the scan vs torch.cumsum; the count and
+     emit passes vs boolean-mask compaction at flag densities of about 0,
+     0.02, 0.5 and 1.
+ 12. the sweep at full size: `pipeline sweep --n 1024 --views 100` in
+     process (counters reset just before, read just after: the fused warp
+     kernel once per z-chunk and carve, MC once per extract); the PLY reads
+     back. Then, on the same inputs: the z-chunked carve == one
+     carve_views_warp (bitwise); the fused warp kernel == plain on one
+     128-plane chunk x 100 views; the MC kernel == plain on a 64-plane slab
+     of the fused state (the plain version's dense temporaries do not fit
+     1024^3), and on the whole grid the fused engine's mesh == the z-slab
+     torch routine's byte for byte; the native face expansion == numpy byte
+     for byte on the whole mesh, both timed; the scan pass timed at 1024^3.
+ 13. the z-chunked two-pass engine: 1024^3 x 2 views of 3840 x 2160 through
+     carve_views_warp_blocked (interp_rows twice per view and chunk); peak
+     memory under the unchunked estimate; one chunk == the plain fold.
+ 14. the bench entry point in process: one JSON line, every key present and
+     no value null; the probe kernel launched once.
+ 15. extract_mesh(engine="xla") == engine="fused" byte for byte on the 256^3
+     sphere (dense and z-slab routines), both timed; a checkpoint of that
+     state saved and loaded back equal.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. No JAX is imported.
 """
@@ -88,6 +115,42 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# 3.35 TB/s, 67 TFLOP/s of float32 outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+
+
+def _bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``n_bytes`` (each input read once, each output written once) and to do
+    ``n_ops`` float32 operations, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# float32 operations of the fused warp kernel, counted from its source:
+# per voxel and view (pass 2: three 4-operation sums, two divisions, four
+# multiply-adds, the clip, the blend, the masks and the update) and per
+# (z-plane, image row, x) and view (pass 1: u_eq and the blend)
+WARP_OPS_PER_FUSION = 48
+WARP_OPS_PER_PASS1 = 30
+
+
+def _warp_bound(sdf, un, imgs, n_views):
+    nz, ny, nx = sdf.shape
+    h = imgs.shape[1]
+    return _bound(
+        2 * _nbytes(sdf, un) + _nbytes(imgs),
+        n_views * (sdf.numel() * WARP_OPS_PER_FUSION
+                   + nz * h * nx * WARP_OPS_PER_PASS1))
+
+
 def phase_device():
     import torch
 
@@ -109,6 +172,8 @@ def phase_device():
 def phase_build():
     from vacancy_tpu_torch import _kernels
 
+    from vacancy_tpu_torch.io import native
+
     t0 = time.perf_counter()
     _kernels.load()
     secs = time.perf_counter() - t0
@@ -117,37 +182,11 @@ def phase_build():
     _phase("build", f"nvcc + load {secs:.3f} s -> {_kernels.build()}")
     for ln in usage:
         print("  " + ln)
+    t0 = time.perf_counter()
+    native.load()
+    _phase("build", f"host compiler + load {time.perf_counter() - t0:.3f} s "
+           f"-> {native.build()}")
     return secs
-
-
-def _bench_case(n: int, n_views: int, device, h=240, w=320):
-    """bench.py's build_case geometry: an n^3 grid over [-1, 1]^3, cameras
-    on a 3.5-radius ring, random-normal SDF images (numpy seed 0)."""
-    import numpy as np
-    import torch
-
-    from vacancy_tpu_torch.camera import PinholeCamera, stack_cameras
-    from vacancy_tpu_torch.grid import GridSpec
-    from vacancy_tpu_torch.synthetic import look_at
-
-    res = 2.0 / n
-    grid = GridSpec((-1.0,) * 3, (-1.0 + (n + 0.3) * res,) * 3, res)
-    _require(grid.shape_zyx == (n, n, n), "bench grid shape")
-    cams = stack_cameras([
-        PinholeCamera.create(
-            w, h,
-            c2w=look_at([3.5 * np.sin(2 * np.pi * i / n_views), 0.5,
-                         -3.5 * np.cos(2 * np.pi * i / n_views)], np.zeros(3)),
-            principal_point=np.array([159.5, 119.5], np.float32),
-            focal_length=np.array([260.0, 260.0], np.float32),
-            device=device,
-        )
-        for i in range(n_views)
-    ])
-    rng = np.random.default_rng(0)
-    imgs = torch.from_numpy(
-        rng.normal(size=(n_views, h, w)).astype(np.float32)).to(device)
-    return grid, cams, imgs
 
 
 def _turntable_case(shape, n_views, device):
@@ -217,11 +256,15 @@ def phase_warp(device):
         max_err = max(max_err, float((ks - ps).abs().nan_to_num(0).max()))
         _phase("warp", f"{name}: bitwise equal (fused {fused:.3f} of voxels)")
 
-    # (c) bench shape 512^3 x 24 views, MAX, random-normal images
-    grid, cams, imgs = _bench_case(512, 24, device)
+    # (c) the bench's shape: 512^3 x 24 views, MAX, random-normal images
+    from vacancy_tpu_torch.bench import build_case
+
+    grid, st, w2c, pp, fl, imgs = build_case(512, 24, device=device)
     opt = cfg.VoxelUpdateOption()
-    st = VoxelGridState.create(grid, device)
-    a = args_of(grid, cams, imgs, st)
+    a = (st.sdf, st.update_num,
+         *(grid.axis_centers_t(i, device) for i in range(3)), w2c, pp, fl,
+         imgs)
+    bound = _warp_bound(st.sdf, st.update_num, imgs, 24)
     ks, ku = warp_fuse_planes(*a, opt, True)
     ps, pu = warp_fuse_planes_plain(*a, opt, True)
     torch.cuda.synchronize()
@@ -232,23 +275,9 @@ def phase_warp(device):
     plain_ms = _cuda_ms(lambda: warp_fuse_planes_plain(*a, opt, True), 2)
     nf = grid.num_voxels * 24
     _phase("warp", f"512^3x24 max bilinear: bitwise equal; kernel {ms:.3f} "
-           f"ms ({nf / ms / 1e6:.3f} Gfusions/s), plain {plain_ms:.3f} ms")
-    return max_err, ms, plain_ms
-
-
-def _sphere_state(n, device, radius=0.8):
-    """bench.py's _sphere_state: a clipped sphere TSDF, all updated."""
-    import torch
-
-    from vacancy_tpu_torch.grid import VoxelGridState
-    from vacancy_tpu_torch.pipeline import turntable_grid
-
-    grid = turntable_grid(n)
-    cx, cy, cz = (grid.axis_centers_t(a, device) for a in range(3))
-    r2 = (cz ** 2)[:, None, None] + (cy ** 2)[None, :, None] + (cx ** 2)[None]
-    sdf = torch.clamp((torch.sqrt(r2) - radius) / 0.05, -1, 1)
-    un = torch.ones((n, n, n), dtype=torch.int32, device=device)
-    return grid, VoxelGridState(sdf.contiguous(), un)
+           f"ms ({nf / ms / 1e6:.3f} Gfusions/s), plain {plain_ms:.3f} ms, "
+           f"bound {bound[0]:.3f} ms by {bound[1]}")
+    return max_err, ms, plain_ms, bound
 
 
 def _random_state(shape, device, seed=5):
@@ -300,9 +329,11 @@ def phase_mc(device):
             h[0:6:2], [v.astype(np.int64) for v in h[1:6:2]], h[6], h[7],
             ny, nx, grid)
 
+    from vacancy_tpu_torch.bench import _sphere_state
+
     timing, max_err = None, 0.0
     for name, (grid, st) in (
-        ("256^3 sphere", _sphere_state(256, device)),
+        ("256^3 sphere", _sphere_state(256, device=device)),
         ("64x72x80 random", _random_state((64, 72, 80), device)),
     ):
         a = (st.sdf, st.update_num,
@@ -323,10 +354,15 @@ def phase_mc(device):
         if timing is None:
             ms = _cuda_ms(lambda: marching_cubes_fused(*a), 10)
             plain_ms = _cuda_ms(lambda: mc_streams_plain(*a), 3)
-            timing = (ms, plain_ms)
+            # the state read once, the streams and counts written once;
+            # about 30 operations per voxel (8 compares, the case, flags)
+            bound = _bound(_nbytes(st.sdf, st.update_num, *k.as_tuple()),
+                           30 * st.sdf.numel())
+            timing = (ms, plain_ms, bound)
             _phase("mc", f"{name}: kernel {ms:.3f} ms (count+scan+emit, one "
-                   f"host read), plain {plain_ms:.3f} ms")
-    return max_err, timing[0], timing[1]
+                   f"host read), plain {plain_ms:.3f} ms, bound "
+                   f"{bound[0]:.3f} ms by {bound[1]}")
+    return (max_err, *timing)
 
 
 def phase_main_path(device):
@@ -406,6 +442,39 @@ INTERP_SHAPES = (
 )
 
 
+def _grid_sample_ms(table, pos) -> float:
+    """Milliseconds of the one PyTorch call that computes kernel C's linear
+    full-row case with a shared table: ``F.grid_sample`` (bilinear, border
+    padding, corners aligned) of the [1, R, T] table at a grid made
+    beforehand from the positions [B, R, N] and their row numbers. The
+    positions are clamped at 0 first, as the port's callers clip them (left
+    of 0 the kernel blends taps 0 and 1 where border padding holds tap 0).
+    The normalised coordinates round, so the result is held to kernel C's
+    within 1e-2 of a unit-normal table, not bitwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from vacancy_tpu_torch.ops.warp_gather import interp_rows
+
+    b, r, n = pos.shape
+    t = table.shape[2]
+    pos = pos.clamp_min(0.0)
+    rows = torch.arange(r, dtype=torch.float32, device=pos.device)
+    grid = torch.stack(
+        [pos * (2.0 / (t - 1)) - 1.0,
+         (rows * (2.0 / (r - 1)) - 1.0)[None, :, None].expand(b, r, n)],
+        dim=-1).reshape(1, b * r, n, 2)
+
+    def call():
+        return F.grid_sample(table[None], grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    err = float((call().reshape(b, r, n)
+                 - interp_rows(table, pos, t, True, True)).abs().max())
+    _require(err <= 1e-2, f"F.grid_sample differs from interp_rows by {err}")
+    return _cuda_ms(call, 5)
+
+
 def phase_interp(device, shapes=INTERP_SHAPES):
     """Kernel C against its plain version at the two shapes the UHD
     facade path gives it: pass 1 (a shared 2160 x 3840 image, positions
@@ -440,12 +509,20 @@ def phase_interp(device, shapes=INTERP_SHAPES):
                       20)
         plain_ms = _cuda_ms(
             lambda: interp_rows_plain(tables, pos, width, True, share), 5)
-        timings[name] = (ms, plain_ms)
+        # the tables and positions read once, the outputs written once;
+        # 6 operations per output (floor, frac, 1 - frac, two products,
+        # the sum)
+        bound = _bound(_nbytes(tables, pos, pos), 6 * pos.numel())
+        lib_ms = _grid_sample_ms(tables, pos) if share else None
+        timings[name] = (ms, plain_ms, bound, lib_ms)
         gb = pos.numel() * 8 / 1e9
+        lib = ("" if lib_ms is None else
+               f", one F.grid_sample on a prebuilt grid {lib_ms:.3f} ms")
         _phase("interp", f"{name} tables {list(tshape)} pos {list(pshape)}: "
                f"bitwise equal (linear, nn; full row and [{roi[0]}, "
                f"{roi[1]}]); kernel {ms:.3f} ms ({gb / ms:.3f} TB/s of "
-               f"positions + outputs), plain {plain_ms:.3f} ms")
+               f"positions + outputs), plain {plain_ms:.3f} ms, bound "
+               f"{bound[0]:.3f} ms by {bound[1]}{lib}")
         del tables, pos
     return max_err, timings
 
@@ -608,7 +685,10 @@ def _ortho_case(device, n_views=8, n=128, size=192, rolled=False):
                             [0.0, 0.0, 1.0]]) @ rot
         w2c = np.eye(4)
         w2c[:3, :3] = rot
-        w2c[:3, 3] = [size / 2, size / 2, 2.0 * n] - rot @ center
+        # the first camera stands at the grid's centre, so half of the
+        # voxels lie behind it (the behind-camera mask has work to do)
+        depth = 0.0 if i == 0 and not rolled else 2.0 * n
+        w2c[:3, 3] = [size / 2, size / 2, depth] - rot @ center
         cams.append(OrthoCamera.create(size, size, np.linalg.inv(w2c),
                                        device=device))
         m = np.zeros((size, size), bool)
@@ -620,61 +700,142 @@ def _ortho_case(device, n_views=8, n=128, size=192, rolled=False):
 
 
 def phase_ortho_exact(device):
-    """Orthographic views through kernel C (bitwise against the plain
-    fold), a rolled ortho camera on the exact engine, and the exact engine
-    against the warp engine at 256^3 x 8 turntable views (the bar of the
-    JAX package's test_warp_close_to_exact)."""
+    """Orthographic views through the fused warp kernel (bitwise against
+    its plain version, timed against the two-pass engine), a 2160-row
+    orthographic view through kernel C, a rolled ortho camera on the exact
+    engine, and the exact engine against the warp engine at 256^3 x 8
+    turntable views (the bar of the JAX package's
+    test_warp_close_to_exact)."""
     import numpy as np
     import torch
 
     from vacancy_tpu_torch import VoxelCarver, VoxelCarverOption
+    from vacancy_tpu_torch import config as cfg
     from vacancy_tpu_torch.camera import stack_cameras
     from vacancy_tpu_torch.grid import VoxelGridState
-    from vacancy_tpu_torch.ops.fusion_warp import _carve_views_warp_ortho
-    from vacancy_tpu_torch.ops.warp_gather import interp_rows, interp_rows_plain
+    from vacancy_tpu_torch.ops.fusion_warp import ortho_homography, warp_fold
+    from vacancy_tpu_torch.ops.sdf2d import make_signed_distance_field
+    from vacancy_tpu_torch.ops.warp_fused import (
+        warp_fuse_planes,
+        warp_fuse_planes_plain,
+    )
+    from vacancy_tpu_torch.ops.warp_gather import interp_rows
     from vacancy_tpu_torch.pipeline import turntable_grid, turntable_masks
 
-    def carver_of(bb):
-        c = VoxelCarver(VoxelCarverOption(bb_min=bb[0], bb_max=bb[1],
-                                          resolution=bb[2]), device)
+    def carver_of(bb, **kw):
+        c = VoxelCarver(VoxelCarverOption(
+            bb_min=bb[0], bb_max=bb[1], resolution=bb[2],
+            update_option=cfg.VoxelUpdateOption(**kw)), device)
         _require(c.init(), "VoxelCarver.init")
         return c
 
+    # kernel A with orthographic rows against its plain version
     bb, cams, masks = _ortho_case(device)
-    c = carver_of(bb)
-    before = interp_rows.launches
-    imgs = c.carve_batch(cams, masks, engine="warp")
-    _require(interp_rows.launches == before + 16,
-             "ortho warp: kernel C not launched twice per view")
     cam = stack_cameras(cams)
-    st = VoxelGridState.create(c.grid, device)
-    plain = _carve_views_warp_ortho(
-        st, c.grid, cam.w2c, torch.from_numpy(imgs).to(device),
-        c.option.update_option, True, None, interp_rows_plain)
+    synth, zero2, one2, z_rows = ortho_homography(cam.w2c)
+    wavg = dict(voxel_update=cfg.VoxelUpdate.WEIGHTED_AVERAGE,
+                use_truncation=True, truncation_band=0.05)
+    a_err = 0.0
+    for rule, kw in (("max", {}), ("wavg", wavg)):
+        c = carver_of(bb, **kw)
+        opt = c.option.update_option
+        imgs = make_signed_distance_field(
+            torch.from_numpy(masks).to(device),
+            use_truncation=opt.use_truncation,
+            truncation_band=opt.truncation_band)
+        st = VoxelGridState.create(c.grid, device)
+        a = (st.sdf, st.update_num,
+             *(c.grid.axis_centers_t(i, device) for i in range(3)), synth,
+             zero2, one2, imgs, opt)
+        for linear in (False, True):
+            ks, ku = warp_fuse_planes(*a, linear, ortho_rows=z_rows)
+            ps, pu = warp_fuse_planes_plain(*a, linear, None, z_rows)
+            torch.cuda.synchronize()
+            what = f"ortho 128^3x8 {rule} linear={linear}"
+            _require(torch.equal(ku, pu), f"{what}: update_num differs")
+            _require(torch.equal(_bits(ks), _bits(ps)), f"{what}: sdf bits")
+            fused = float((ku > 0).float().mean())
+            _require(fused > 0.05, f"{what}: nothing fused")
+            a_err = max(a_err, float((ks - ps).abs().nan_to_num(0).max()))
+            _phase("ortho", f"{what}: fused kernel with ortho rows == plain "
+                   f"(update_num exact, sdf bitwise; fused {fused:.3f} of "
+                   f"voxels)")
+    # the two-pass engine (kernel C and the z_rows behind-camera mask) on
+    # the same views: its plain version is the same fold, so the fused
+    # kernel and the two-pass engine agree bit for bit as well
+    ts, tu = warp_fold(*a, True, None, interp_rows, z_rows=z_rows)
     torch.cuda.synchronize()
-    _require(torch.equal(c.state.update_num, plain.update_num)
-             and torch.equal(_bits(c.state.sdf), _bits(plain.sdf)),
-             "ortho 128^3x8: kernel C engine != plain fold")
-    fused = float((plain.update_num > 0).float().mean())
-    _require(fused > 0.05, "ortho: nothing fused")
-    _phase("ortho", f"128^3 x 8 ortho views via kernel C == plain fold "
-           f"(update_num exact, sdf bitwise; fused {fused:.3f} of voxels)")
+    _require(torch.equal(tu, pu) and torch.equal(_bits(ts), _bits(ps)),
+             "ortho 128^3x8 wavg bilinear: two-pass engine with kernel C != "
+             "plain fold")
+    del ts, tu
+    a_ms = _cuda_ms(lambda: warp_fuse_planes(*a, True, ortho_rows=z_rows), 20)
+    two_ms = _cuda_ms(lambda: warp_fold(*a, True, None, interp_rows,
+                                        z_rows=z_rows), 5)
+    plain_ms = _cuda_ms(
+        lambda: warp_fuse_planes_plain(*a, True, None, z_rows), 3)
+    a_bound = _warp_bound(st.sdf, st.update_num, imgs, len(cams))
+    _phase("ortho", f"128^3x8 wavg bilinear, 192 rows: two-pass engine with "
+           f"kernel C == plain fold (update_num exact, sdf bitwise); fused "
+           f"kernel {a_ms:.3f} ms, two-pass engine {two_ms:.3f} ms, plain "
+           f"{plain_ms:.3f} ms, bound {a_bound[0]:.4f} ms by {a_bound[1]}")
+
+    # the facade sends views that fit to A, taller ones to C
+    counters = (warp_fuse_planes, interp_rows)
+    before = [k.launches for k in counters]
+    c.carve_batch(cams, masks, engine="warp")
+    _require([k.launches for k in counters] == [before[0] + 1, before[1]],
+             "ortho views of 192 rows: need one fused-kernel launch and no "
+             "kernel C")
+    torch.cuda.synchronize()
+    _require(torch.equal(c.state.update_num, pu)
+             and torch.equal(_bits(c.state.sdf), _bits(ps)),
+             "ortho facade carve != plain fold")
+    tall_bb, tall_cams, tall_masks = _ortho_case(device, n_views=1, size=2160)
+    c = carver_of(tall_bb)
+    before = [k.launches for k in counters]
+    tall_imgs = c.carve_batch(tall_cams, tall_masks, engine="warp")
+    torch.cuda.synchronize()
+    _require([k.launches for k in counters] == [before[0], before[1] + 2],
+             "a 2160-row ortho view: need kernel C twice and no fused kernel")
+    opt = c.option.update_option
+    st = VoxelGridState.create(c.grid, device)
+    t_synth, t_zero2, t_one2, t_rows = ortho_homography(
+        stack_cameras(tall_cams).w2c)
+    ps, pu = warp_fuse_planes_plain(
+        st.sdf, st.update_num,
+        *(c.grid.axis_centers_t(i, device) for i in range(3)), t_synth,
+        t_zero2, t_one2, torch.from_numpy(tall_imgs).to(device), opt,
+        opt.sdf_interp == cfg.SdfInterpolation.BILINEAR, None, t_rows)
+    torch.cuda.synchronize()
+    _require(torch.equal(c.state.update_num, pu)
+             and torch.equal(_bits(c.state.sdf), _bits(ps)),
+             "a 2160-row ortho view through kernel C != plain fold")
+    tall_fused = float((pu > 0).float().mean())
+    _require(0.05 < tall_fused < 0.95,
+             f"tall ortho: fused {tall_fused} of voxels (half lie behind)")
+    del st, ps, pu
+    _phase("ortho", f"carve_batch(engine='warp'): 8 ortho views of 192 rows "
+           f"launch the fused kernel once and kernel C never (== plain "
+           f"fold); one 2160-row ortho view launches kernel C twice and == "
+           f"plain fold, update_num exact and sdf bitwise (fused "
+           f"{tall_fused:.3f} of voxels, the rest behind the camera)")
 
     bb, cams, masks = _ortho_case(device, n_views=1, rolled=True)
     _require(abs(float(cams[0].w2c[1, 1])) < 1e-2, "rolled camera")
     warp, exact = carver_of(bb), carver_of(bb)
-    before = interp_rows.launches
+    before = [k.launches for k in counters]
     warp.carve_batch(cams, masks, engine="warp")
-    _require(interp_rows.launches == before,
-             "rolled ortho camera launched kernel C")
+    _require([k.launches for k in counters] == before,
+             "rolled ortho camera launched a warp kernel")
     exact.carve_batch(cams, masks, engine="exact")
     torch.cuda.synchronize()
     _require(torch.equal(warp.state.update_num, exact.state.update_num)
              and torch.equal(_bits(warp.state.sdf), _bits(exact.state.sdf))
              and bool((exact.state.update_num > 0).any()),
              "rolled ortho camera: warp != exact engine")
-    _phase("ortho", "rolled camera (|w2c[1,1]| < 1e-2): exact engine, "
-           "kernel C not launched, state == carve_batch(engine='exact')")
+    _phase("ortho", "rolled camera (|w2c[1,1]| < 1e-2): exact engine, no "
+           "warp kernel launched, state == carve_batch(engine='exact')")
 
     grid = turntable_grid(256)
     bb = (grid.bb_min, grid.bb_max, grid.resolution)
@@ -686,6 +847,7 @@ def phase_ortho_exact(device):
         c.carve_batch(cams, masks, engine=engine)
         torch.cuda.synchronize()
         states[engine] = (c.state, time.perf_counter() - t0)
+    del c
     (e, e_s), (w, w_s) = states["exact"], states["warp"]
     touched = e.update_num >= 1
     _require(torch.equal(touched, w.update_num >= 1),
@@ -698,6 +860,478 @@ def phase_ortho_exact(device):
            f"engine: same touched voxels, |dsdf| q99 {q99:.3e} max "
            f"{float(err.max()):.3e}; carve_batch exact {e_s:.3f} s, warp "
            f"{w_s:.3f} s (first calls)")
+    return a_err, a_ms, two_ms
+
+
+def phase_probe(device):
+    """Kernel D against its plain version, and its first launch's time."""
+    import numpy as np
+    import torch
+
+    from vacancy_tpu_torch import bench
+
+    ok, first_s = bench.warm_probe(device)
+    _require(ok, "probe kernel: wrong sum")
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(
+        rng.normal(size=bench.PROBE_SHAPE).astype(np.float32)).to(device)
+    k, p = bench.probe_scale(x), bench.probe_scale_plain(x)
+    torch.cuda.synchronize()
+    _require(torch.equal(_bits(k), _bits(p)), "probe kernel != plain")
+    ms = _cuda_ms(lambda: bench.probe_scale(x), 100)
+    plain_ms = _cuda_ms(lambda: bench.probe_scale_plain(x), 100)
+    lib_ms = _cuda_ms(lambda: torch.mul(x, 2.0), 100)
+    bound = _bound(_nbytes(x, x), x.numel())
+    _phase("probe", f"f32 {list(x.shape)} * 2: kernel == plain bitwise; "
+           f"first launch (library already built) {first_s * 1e3:.3f} ms; "
+           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mul "
+           f"{lib_ms:.4f} ms, bound {bound[0]:.2e} ms by {bound[1]}")
+    return float((k - p).abs().max()), ms, plain_ms, lib_ms, bound
+
+
+def _density_state(shape, density, device, seed=9):
+    """A state whose MC flags have about ``density`` per edge stream: 0 (a
+    constant field), 1 (a checkerboard of signs), or signs drawn so that
+    an edge straddles the iso level with that probability."""
+    import numpy as np
+
+    from vacancy_tpu_torch.grid import GridSpec, state_from_numpy
+
+    nz, ny, nx = shape
+    rng = np.random.default_rng(seed)
+    if density == 0.0:
+        sign = np.ones(shape)
+    elif density == 1.0:
+        k, j, i = np.indices(shape)
+        sign = np.where((k + j + i) % 2 == 0, 1.0, -1.0)
+    else:
+        p = (1 - np.sqrt(1 - 2 * density)) / 2  # 2 p (1 - p) = density
+        sign = np.where(rng.random(shape) < p, -1.0, 1.0)
+    sdf = (sign * rng.uniform(0.1, 1.0, size=shape)).astype(np.float32)
+    grid = GridSpec((0.0,) * 3, (nx + 0.4, ny + 0.4, nz + 0.4), 1.0)
+    return grid, state_from_numpy(sdf, np.ones(shape, np.int32), device)
+
+
+def phase_mc_passes(device):
+    """Kernel B's passes on their own: the scan against torch.cumsum, the
+    count pass against the dense flags summed per tile and the emit pass
+    against boolean-mask compaction, at four flag densities."""
+    import numpy as np
+    import torch
+
+    from vacancy_tpu_torch.ops import mc_fused
+
+    rng = np.random.default_rng(11)
+    scan_err = 0
+    for nz, tpp in ((300, 7), (1, 1), (512, 256)):
+        counts = torch.from_numpy(rng.integers(
+            0, mc_fused.TILE + 1, size=(nz * tpp, 4)).astype(np.int32)
+        ).to(device)
+        k = mc_fused.mc_scan(counts, tpp)
+        p = mc_fused.mc_scan_plain(counts, tpp)
+        torch.cuda.synchronize()
+        _require(all(x.dtype == y.dtype and torch.equal(x, y)
+                     for x, y in zip(k, p)),
+                 f"mc scan {nz} planes x {tpp} tiles != torch.cumsum")
+        scan_err = max(scan_err, _scan_err(k, p))
+    _phase("mc-passes", "scan pass alone == torch.cumsum (offsets, totals, "
+           "plane counts) for 300x7, 1x1 and 512x256 tiles of random counts")
+    shape = (64, 96, 128)
+    for density in (0.0, 0.02, 0.5, 1.0):
+        grid, st = _density_state(shape, density, device)
+        a = (st.sdf, st.update_num,
+             *(grid.axis_centers_t(i, device) for i in range(3)))
+        counts = mc_fused.mc_tile_counts(*a)
+        _require(torch.equal(counts, mc_fused.mc_tile_counts_plain(*a[:2])),
+                 f"mc count pass at density {density} != plain")
+        k = mc_fused.marching_cubes_fused(*a)
+        p = mc_fused.mc_streams_plain(*a)
+        _require_same_streams(k, p, f"mc emit at density {density}")
+        got = [t.numel() / st.sdf.numel()
+               for t in (k.vx_lin, k.vy_lin, k.vz_lin, k.c_lin)]
+        _require(abs(got[0] - density) < 0.05,
+                 f"density {density}: x-edge flags {got[0]}")
+        _phase("mc-passes", f"{shape} density {density}: count == plain tile "
+               f"sums, emit == mask compaction (flag densities x "
+               f"{got[0]:.3f} y {got[1]:.3f} z {got[2]:.3f} cubes "
+               f"{got[3]:.3f})")
+    return scan_err
+
+
+def _scan_err(kernel, plain) -> int:
+    """max |kernel - plain| over the scan's offsets, totals and per-plane
+    counts."""
+    return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+               for x, y in zip(kernel, plain))
+
+
+def _empty_planes(shape, device):
+    """(sdf, update_num) of an untouched grid of ``shape``."""
+    import torch
+
+    from vacancy_tpu_torch.config import INVALID_SDF
+
+    return (torch.full(shape, float(INVALID_SDF), dtype=torch.float32,
+                       device=device),
+            torch.zeros(shape, dtype=torch.int32, device=device))
+
+
+def _reset_counters():
+    from vacancy_tpu_torch import bench
+    from vacancy_tpu_torch.ops import mc_fused, warp_fused, warp_gather
+
+    counters = {
+        "warp_fused": warp_fused.warp_fuse_planes,
+        "mc_fused": mc_fused.marching_cubes_fused,
+        "mc_scan": mc_fused.mc_scan,
+        "interp_rows": warp_gather.interp_rows,
+        "probe": bench.probe_scale,
+    }
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+def _read_counters(counters) -> dict:
+    return {name: c.launches for name, c in counters.items()}
+
+
+def phase_sweep(device, n=1024, n_views=100):
+    """This slice's main path at full size: the 1024^3 x 100 sweep through
+    its entry point, then its kernels against their plain versions and the
+    z-chunked carve against the unchunked one on the same inputs."""
+    import numpy as np
+    import torch
+
+    from vacancy_tpu_torch import pipeline
+    from vacancy_tpu_torch.config import SdfInterpolation
+    from vacancy_tpu_torch.grid import VoxelGridState
+    from vacancy_tpu_torch.mesh import Mesh
+    from vacancy_tpu_torch.ops import fusion_warp, mc_fused, warp_fused
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    with tempfile.TemporaryDirectory() as out_dir:
+        counters = _reset_counters()
+        t0 = time.perf_counter()
+        res = pipeline.main(["sweep", "--n", str(n), "--views", str(n_views),
+                             "--out", out_dir])
+        wall = time.perf_counter() - t0
+        launches = _read_counters(counters)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        t0 = time.perf_counter()
+        back = Mesh.load_ply(os.path.join(out_dir, f"sweep_{n}.ply"))
+        load_s = time.perf_counter() - t0
+    chunks = n // fusion_warp._snap_chunk_nz(n, 128) if n > 128 else 1
+    _require(launches["warp_fused"] == 2 * chunks
+             and launches["mc_fused"] == 2 and launches["mc_scan"] == 2
+             and launches["interp_rows"] == 0,
+             f"sweep launches {launches}: need the fused warp kernel once "
+             f"per chunk and carve ({2 * chunks}), MC once per extract (2)")
+    _require((back.num_vertices, back.num_faces)
+             == (res["mc_vertices"], res["mc_faces"]), "PLY read-back counts")
+    _require(back.num_faces > 400_000, f"too few faces: {back.num_faces}")
+    _require(bool(np.isfinite(back.vertices).all())
+             and bool((np.abs(back.vertices) <= 1.11).all()),
+             "vertices outside the grid")
+    _require(int(back.faces.min()) >= 0
+             and int(back.faces.max()) < back.num_vertices, "face indices")
+    _phase("sweep", f"run_sweep {n}^3 x {n_views}: carve cold "
+           f"{res['carve_cold_s']:.4f} s, warm {res['carve_s']:.4f} s "
+           f"({res['fusions_per_s'] / 1e9:.3f} Gfusions/s), extract cold "
+           f"{res['extract_cold_s']:.4f} s, warm {res['extract_s']:.4f} s, "
+           f"{res['mc_vertices']} vertices, {res['mc_faces']} faces, wall "
+           f"{wall:.3f} s, launches {launches}, peak mem {peak:.2f} GiB; "
+           f"PLY read back in {load_s:.3f} s")
+
+    # the same inputs again: blocked (in place) vs one carve_views_warp
+    grid, opt, cams, imgs = pipeline.turntable_inputs(n, n_views, True, device)
+    linear = opt.sdf_interp == SdfInterpolation.BILINEAR
+    cam_args = (cams.w2c, cams.principal_point, cams.focal_length, imgs)
+    blocked = fusion_warp.carve_views_warp_blocked(
+        VoxelGridState.create(grid, device), grid, *cam_args, opt=opt,
+        linear=linear)
+    whole = fusion_warp.carve_views_warp(
+        VoxelGridState.create(grid, device), grid, *cam_args, opt=opt,
+        linear=linear)
+    torch.cuda.synchronize()
+    _require(torch.equal(blocked.update_num, whole.update_num),
+             "sweep: blocked carve update_num != unblocked")
+    _require(torch.equal(_bits(blocked.sdf), _bits(whole.sdf)),
+             "sweep: blocked carve sdf bits != unblocked")
+    fused = float((whole.update_num > 0).float().mean())
+    del whole
+    torch.cuda.empty_cache()
+    _phase("sweep", f"{n}^3 x {n_views}: carve_views_warp_blocked (in place, "
+           f"{chunks} chunks) == one carve_views_warp, update_num exact and "
+           f"sdf bitwise (fused {fused:.3f} of voxels)")
+
+    # kernel A == plain on one 128-plane chunk x all views (the middle)
+    centers = [grid.axis_centers_t(a, device) for a in range(3)]
+    z0 = (n // 2 // 128) * 128 if n > 128 else 0
+    zs = slice(z0, z0 + min(128, n))
+    a = (*_empty_planes((zs.stop - zs.start, n, n), device), centers[0],
+         centers[1], centers[2][zs].contiguous(), *cam_args, opt, linear)
+    ps, pu = warp_fused.warp_fuse_planes_plain(*a)
+    torch.cuda.synchronize()
+    _require(torch.equal(blocked.update_num[zs], pu),
+             "sweep chunk: fused warp kernel update_num != plain")
+    _require(torch.equal(_bits(blocked.sdf[zs]), _bits(ps)),
+             "sweep chunk: fused warp kernel sdf bits != plain")
+    a_err = float((blocked.sdf[zs] - ps).abs().nan_to_num(0).max())
+    ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 3)
+    bound = _warp_bound(a[0], a[1], imgs, n_views)
+    del a, ps, pu
+    torch.cuda.empty_cache()
+    _phase("sweep", f"planes [{zs.start}, {zs.stop}) x {n_views} views: "
+           f"fused warp kernel == plain (update_num exact, sdf bitwise); "
+           f"kernel {ms:.3f} ms per chunk, bound {bound[0]:.3f} ms by "
+           f"{bound[1]}")
+
+    # kernel B == plain on a 64-plane slab of the fused state: the plain
+    # version's dense temporaries (some 60 bytes per voxel) do not fit n^3
+    ks = slice(n // 2 - 32, n // 2 + 32)
+    slab = (blocked.sdf[ks].contiguous(), blocked.update_num[ks].contiguous(),
+            centers[0], centers[1], centers[2][ks].contiguous())
+    k = mc_fused.marching_cubes_fused(*slab)
+    p = mc_fused.mc_streams_plain(*slab)
+    b_err = _require_same_streams(k, p, "sweep slab mc")
+    _require(int(k.c_lin.numel()) > 10_000, "sweep slab: too few cubes")
+    slab_cubes = int(k.c_lin.numel())
+    del k, p, slab
+    torch.cuda.empty_cache()
+
+    # the whole mesh: native face expansion against numpy, byte for byte
+    st = mc_fused.marching_cubes_fused(blocked.sdf, blocked.update_num,
+                                       *centers)
+    host = [t.cpu().numpy() for t in st.as_tuple()[:8]]
+    vlins = [v.astype(np.int64) for v in host[1:6:2]]
+    bases = np.cumsum([0] + [len(v) for v in vlins[:2]])
+    ny, nx = grid.shape_zyx[1:]
+    t0 = time.perf_counter()
+    f_native = mc_fused.expand_faces(host[6], host[7], ny, nx, vlins, bases)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_numpy = mc_fused._expand_faces(host[6], host[7], ny, nx, vlins, bases)
+    numpy_s = time.perf_counter() - t0
+    _require(f_native.dtype == f_numpy.dtype
+             and f_native.tobytes() == f_numpy.tobytes(),
+             "native face expansion != numpy")
+    mesh = mc_fused.assemble_fused_streams(host[0:6:2], vlins, host[6],
+                                           host[7], ny, nx, grid)
+    _require(np.array_equal(mesh.vertices.view(np.int32),
+                            back.vertices.view(np.int32))
+             and np.array_equal(mesh.faces, back.faces),
+             "the sweep's PLY differs from the mesh of the same inputs")
+    # and the whole grid through the other engine: the plain-torch z-slab
+    # routine walks all n^3 voxels in slabs that fit, so the kernel's linear
+    # ids are held up to n^3 - 1 and not only inside one slab
+    from vacancy_tpu_torch.ops.marching_cubes import extract_mesh
+
+    t0 = time.perf_counter()
+    slabs = extract_mesh(blocked, grid, engine="xla")
+    xla_s = time.perf_counter() - t0
+    _require(np.array_equal(slabs.faces, mesh.faces)
+             and np.array_equal(slabs.vertices.view(np.int32),
+                                mesh.vertices.view(np.int32)),
+             f"sweep: extract_mesh(engine='xla') != the fused engine at {n}^3")
+    del slabs
+    _phase("sweep", f"{n}^3: extract_mesh(engine='xla') (z-slabs, {xla_s:.3f} "
+           f"s) == the fused engine's mesh byte for byte")
+    _phase("sweep", f"MC kernel == plain on planes [{ks.start}, {ks.stop}) "
+           f"({slab_cubes} active cubes; counts and 4 streams "
+           f"byte-identical); native face expansion == numpy on the whole "
+           f"mesh ({len(f_native)} faces): native {native_s:.4f} s "
+           f"(threads on {len(os.sched_getaffinity(0))} cores), numpy "
+           f"{numpy_s:.4f} s; the written PLY equals the "
+           f"mesh")
+
+    # the scan pass at this size: one CTA over nz * tiles_per_plane tiles
+    tpp = mc_fused.tiles_per_plane(ny, nx)
+    counts = mc_fused.mc_tile_counts(blocked.sdf, blocked.update_num,
+                                     *centers)
+    k = mc_fused.mc_scan(counts, tpp)
+    p = mc_fused.mc_scan_plain(counts, tpp)
+    torch.cuda.synchronize()
+    _require(all(torch.equal(x, y) for x, y in zip(k, p)),
+             "sweep: scan pass != torch.cumsum")
+    scan_err = _scan_err(k, p)
+    scan_ms = _cuda_ms(lambda: mc_fused.mc_scan(counts, tpp), 5)
+    scan_plain = _cuda_ms(lambda: mc_fused.mc_scan_plain(counts, tpp), 5)
+    scan_lib = _cuda_ms(
+        lambda: torch.cumsum(counts, dim=0, dtype=torch.int32), 5)
+    count_ms = _cuda_ms(lambda: mc_fused.mc_tile_counts(
+        blocked.sdf, blocked.update_num, *centers), 3)
+    whole_ms = _cuda_ms(lambda: mc_fused.marching_cubes_fused(
+        blocked.sdf, blocked.update_num, *centers), 3)
+    scan_bound = _bound(_nbytes(counts, *k), 4 * counts.numel())
+    mc_bound = _bound(_nbytes(blocked.sdf, blocked.update_num,
+                              *st.as_tuple()), 30 * blocked.sdf.numel())
+    _phase("sweep", f"{n}^3 MC passes: count {count_ms:.3f} ms, scan "
+           f"{scan_ms:.3f} ms over {counts.shape[0]} tiles (plain "
+           f"{scan_plain:.3f} ms, one torch.cumsum {scan_lib:.3f} ms, bound "
+           f"{scan_bound[0]:.4f} ms by {scan_bound[1]}), all three passes "
+           f"{whole_ms:.3f} ms (bound {mc_bound[0]:.3f} ms by "
+           f"{mc_bound[1]})")
+    scan = {"ms": scan_ms, "plain_ms": scan_plain, "library_ms": scan_lib,
+            "bound": scan_bound, "err": scan_err}
+    del blocked, st, counts
+    torch.cuda.empty_cache()
+    return launches, a_err, b_err, scan, (native_s, numpy_s)
+
+
+def phase_blocked_two_pass(device, n=1024, n_views=2):
+    """The z-chunked two-pass engine: views of 3840 x 2160 into n^3 through
+    carve_views_warp_blocked, kernel C twice per view and chunk; the peak
+    stays under what the unchunked fold would hold; one chunk against the
+    plain fold."""
+    import torch
+
+    from vacancy_tpu_torch.camera import stack_cameras
+    from vacancy_tpu_torch.grid import VoxelGridState
+    from vacancy_tpu_torch.ops import fusion_warp, warp_fused
+    from vacancy_tpu_torch.ops.sdf2d import make_signed_distance_field
+    from vacancy_tpu_torch.pipeline import facade_inputs, turntable_grid
+
+    h, w = 2160, 3840
+    opt, cams, masks = facade_inputs(n, n_views, w, h, device)
+    opt = opt.update_option
+    grid = turntable_grid(n)
+    cam = stack_cameras(cams)
+    imgs = make_signed_distance_field(
+        masks.to(device), use_truncation=True,
+        truncation_band=opt.truncation_band)
+    cam_args = (cam.w2c, cam.principal_point, cam.focal_length, imgs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    state = fusion_warp.carve_views_warp_blocked(
+        VoxelGridState.create(grid, device), grid, *cam_args, opt=opt)
+    torch.cuda.synchronize()
+    carve_s = time.perf_counter() - t0
+    launches = _read_counters(counters)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    chunks = n // fusion_warp._snap_chunk_nz(n, 128) if n > 128 else 1
+    _require(launches["interp_rows"] == 2 * n_views * chunks
+             and launches["warp_fused"] == 0,
+             f"blocked two-pass launches {launches}: need kernel C twice per "
+             f"view and chunk ({2 * n_views * chunks}) and no fused kernel")
+    # the unchunked fold holds the state in and out plus about ten fields
+    # of nz * max(h, ny) * nx f32 for one view
+    unchunked = (16 * n**3 + 10 * 4 * n * max(h, n) * n) / 2**30
+    _require(peak < unchunked, f"peak {peak} GiB, unchunked {unchunked} GiB")
+
+    zs = slice(n // 2, n // 2 + min(128, n // 2))
+    centers = [grid.axis_centers_t(a, device) for a in range(3)]
+    ps, pu = warp_fused.warp_fuse_planes_plain(
+        *_empty_planes((zs.stop - zs.start, n, n), device), centers[0],
+        centers[1], centers[2][zs].contiguous(), *cam_args, opt, True)
+    torch.cuda.synchronize()
+    _require(torch.equal(state.update_num[zs], pu)
+             and torch.equal(_bits(state.sdf[zs]), _bits(ps)),
+             "blocked two-pass chunk != plain fold")
+    fused = float((pu > 0).float().mean())
+    _require(fused > 0.05, "blocked two-pass: nothing fused")
+    c_err = float((state.sdf[zs] - ps).abs().nan_to_num(0).max())
+    _phase("blocked", f"{n}^3 x {n_views} views of {w}x{h} through "
+           f"carve_views_warp_blocked: {carve_s:.4f} s (first call; "
+           f"{grid.num_voxels * n_views / carve_s / 1e9:.3f} Gfusions/s), "
+           f"launches {launches}, peak mem {peak:.2f} GiB (unchunked "
+           f"estimate {unchunked:.1f} GiB); planes [{zs.start}, {zs.stop}) "
+           f"== plain fold, update_num exact and sdf bitwise (fused "
+           f"{fused:.3f} of them)")
+    del state, ps, pu, imgs
+    torch.cuda.empty_cache()
+    return launches, c_err
+
+
+BENCH_KEYS = (
+    "metric", "value", "unit", "probe_s", "device", "power_limit_w",
+    "mc_cubes_per_sec_256^3", "mc_extract_warm_s_256^3", "mc_device_s_256^3",
+    "native_fast_path", "mc_vertices_256^3", "mc_extract_warm_s_512^3",
+    "mc_vertices_512^3", "mc_extract_warm_s_512^3_near_empty",
+    "mc_vertices_512^3_near_empty",
+)
+
+
+def phase_bench(device):
+    """The bench entry point in process: its one JSON line has every key
+    and no null; the probe kernel ran once before the timed work."""
+    from vacancy_tpu_torch import bench
+
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    out = bench.main([])
+    wall = time.perf_counter() - t0
+    launches = _read_counters(counters)
+    _require(tuple(out) == BENCH_KEYS, f"bench keys {tuple(out)}")
+    _require(all(v is not None for v in out.values()),
+             f"bench line holds a null: {out}")
+    _require(out["native_fast_path"] is True, "bench: no native fast path")
+    _require(launches["probe"] == 1 and launches["warp_fused"] == 5
+             and launches["mc_fused"] > 0,
+             f"bench launches {launches}: need the probe once and the fused "
+             f"warp kernel five times (warm-up + 4)")
+    _phase("bench", f"bench.main(): {out['value'] / 1e9:.3f} Gfusions/s at "
+           f"512^3 x 24, wall {wall:.3f} s, launches {launches}")
+    return launches
+
+
+def phase_xla_checkpoint(device):
+    """The torch dense and z-slab MC routines against the fused engine on
+    the 256^3 sphere, and a checkpoint round trip of that state."""
+    import numpy as np
+    import torch
+
+    from vacancy_tpu_torch.bench import _sphere_state
+    from vacancy_tpu_torch.checkpoint import load_state, save_state
+    from vacancy_tpu_torch.ops.marching_cubes import (
+        extract_mesh,
+        extract_mesh_blocked,
+    )
+
+    grid, st = _sphere_state(256, device=device)
+    meshes, secs = {}, {}
+    for name, fn in (
+        ("fused", lambda: extract_mesh(st, grid, engine="fused")),
+        ("xla", lambda: extract_mesh(st, grid, engine="xla")),
+        ("xla z-slabs", lambda: extract_mesh_blocked(st, grid, slab_nz=48)),
+    ):
+        fn()  # warm-up
+        t0 = time.perf_counter()
+        meshes[name] = fn()
+        secs[name] = time.perf_counter() - t0
+    ref = meshes["fused"]
+    _require(ref.num_faces > 100_000, "256^3 sphere: too few faces")
+    for name in ("xla", "xla z-slabs"):
+        m = meshes[name]
+        _require(np.array_equal(m.faces, ref.faces)
+                 and np.array_equal(m.vertices.view(np.int32),
+                                    ref.vertices.view(np.int32)),
+                 f"extract_mesh {name} != fused")
+    _phase("xla-mc", f"256^3 sphere ({ref.num_vertices} vertices, "
+           f"{ref.num_faces} faces): engine='xla' (dense) and the z-slab "
+           f"routine == engine='fused' byte for byte; fused "
+           f"{secs['fused']:.4f} s, xla {secs['xla']:.4f} s, z-slabs "
+           f"{secs['xla z-slabs']:.4f} s")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sphere_256")
+        t0 = time.perf_counter()
+        save_state(path, st, grid, next_view=7, extra={"case": "sphere"})
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path + ".npz")
+        t0 = time.perf_counter()
+        back, grid2, next_view, extra = load_state(path, device=device)
+        load_s = time.perf_counter() - t0
+    _require(grid2 == grid and next_view == 7 and extra == {"case": "sphere"}
+             and torch.equal(_bits(back.sdf), _bits(st.sdf))
+             and torch.equal(back.update_num, st.update_num)
+             and back.sdf.device == st.sdf.device,
+             "checkpoint round trip differs")
+    _phase("checkpoint", f"256^3 state: save_state {save_s:.3f} s "
+           f"({size / 2**20:.1f} MiB), load_state {load_s:.3f} s, equal")
 
 
 def main() -> int:
@@ -709,33 +1343,54 @@ def main() -> int:
 
     device, smi = phase_device()
     phase_build()
-    a_err, a_ms, a_plain = phase_warp(device)
-    b_err, b_ms, b_plain = phase_mc(device)
-    launches, a_main_err, b_main_err = phase_main_path(device)
+    a_err, a_ms, a_plain, a_bound = phase_warp(device)
+    b_err, b_ms, b_plain, b_bound = phase_mc(device)
+    _, a_main_err, b_main_err = phase_main_path(device)
     c_err, c_times = phase_interp(device)
     phase_two_pass(device)
-    facade_launches, c_main_err = phase_facade(device)
-    phase_ortho_exact(device)
+    _, c_main_err = phase_facade(device)
+    a_ortho_err, _, _ = phase_ortho_exact(device)
+    d_err, d_ms, d_plain, d_lib, d_bound = phase_probe(device)
+    scan_small_err = phase_mc_passes(device)
+    sweep_launches, a_sweep_err, b_sweep_err, scan, _ = phase_sweep(device)
+    blocked_launches, c_blocked_err = phase_blocked_two_pass(device)
+    bench_launches = phase_bench(device)
+    phase_xla_checkpoint(device)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+              library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"vacancy_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms}
+
+    c_ms, c_plain, c_bound, c_lib = c_times["pass1"]
     kernels = [
-        {"name": "warp_fused", "route": "cuda",
-         "source": "vacancy_tpu_torch/csrc/warp_fused.cu",
-         "replaces": "vacancy_tpu/ops/warp_fused.py:252",
-         "launches": launches["warp_fused"],
-         "max_abs_err": max(a_err, a_main_err),
-         "ms": a_ms, "plain_ms": a_plain},
-        {"name": "mc_fused", "route": "cuda",
-         "source": "vacancy_tpu_torch/csrc/mc_fused.cu",
-         "replaces": "vacancy_tpu/ops/mc_fused.py:285",
-         "launches": launches["mc_fused"],
-         "max_abs_err": max(b_err, b_main_err),
-         "ms": b_ms, "plain_ms": b_plain},
-        {"name": "interp_rows", "route": "cuda",
-         "source": "vacancy_tpu_torch/csrc/interp_rows.cu",
-         "replaces": "vacancy_tpu/ops/warp_gather.py:29",
-         "launches": facade_launches["interp_rows"],
-         "max_abs_err": max(c_err, c_main_err),
-         "ms": c_times["pass1"][0], "plain_ms": c_times["pass1"][1]},
+        entry("warp_fused", "warp_fused.cu",
+              "vacancy_tpu/ops/warp_fused.py:252",
+              sweep_launches["warp_fused"],
+              max(a_err, a_main_err, a_ortho_err, a_sweep_err), a_ms,
+              a_plain, a_bound),
+        entry("mc_fused", "mc_fused.cu", "vacancy_tpu/ops/mc_fused.py:285",
+              sweep_launches["mc_fused"],
+              max(b_err, b_main_err, b_sweep_err), b_ms, b_plain, b_bound),
+        entry("interp_rows", "interp_rows.cu",
+              "vacancy_tpu/ops/warp_gather.py:29",
+              blocked_launches["interp_rows"],
+              max(c_err, c_main_err, c_blocked_err), c_ms, c_plain, c_bound,
+              c_lib),
+        entry("probe", "probe.cu", "bench.py:53", bench_launches["probe"],
+              d_err, d_ms, d_plain, d_bound, d_lib),
+        entry("mc_scan", "mc_fused.cu", "tests/test_mc_fused.py:199",
+              sweep_launches["mc_scan"],
+              float(max(scan_small_err, scan["err"])), scan["ms"],
+              scan["plain_ms"],
+              scan["bound"], scan["library_ms"]),
     ]
+    _require(all(k["launches"] > 0 for k in kernels),
+             f"a kernel was not launched on its path: {kernels}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

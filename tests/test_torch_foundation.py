@@ -204,3 +204,165 @@ def test_stack_cameras_takes_either_type_not_both():
     np.testing.assert_array_equal(st.w2c.numpy(), np.asarray(j.w2c))
     with pytest.raises(ValueError, match="one type"):
         tcam.stack_cameras([ortho[0], tcam.PinholeCamera.create(32, 24)])
+
+
+def _pinhole_pair():
+    c2w = jsyn.look_at([1.3, -0.4, 2.9], np.array([0.1, 0.0, -0.2]))
+    kw = dict(c2w=c2w, principal_point=np.array([159.3, 127.65], np.float32),
+              focal_length=np.array([258.65, 258.25], np.float32))
+    return (tcam.PinholeCamera.create(320, 240, **kw),
+            jcam.PinholeCamera.create(320, 240, **kw))
+
+
+@pytest.mark.parametrize("setter", ["c2w", "principal_point", "focal_length",
+                                    "fov_x", "fov_y"])
+def test_pinhole_functional_setters_bitwise(setter):
+    tc, jc = _pinhole_pair()
+    arg = {
+        "c2w": jsyn.look_at([-1.5, 0.4, 2.2], np.zeros(3)),
+        "principal_point": np.array([100.25, 90.5], np.float32),
+        "focal_length": np.array([300.0, 310.5], np.float32),
+        "fov_x": 61.5,
+        "fov_y": 38.25,
+    }[setter]
+    t2 = getattr(tc, f"with_{setter}")(arg)
+    j2 = getattr(jc, f"with_{setter}")(arg)
+    _assert_cam_equal(t2, j2)
+    # functional: the camera it was made from is unchanged
+    _assert_cam_equal(tc, jc)
+    assert t2 is not tc
+
+
+def test_pinhole_fov_properties_match_jax():
+    """atan and the degree conversion may differ by an ulp between the
+    two libraries: 4 ulp of the angle."""
+    tc, jc = _pinhole_pair()
+    for t, j in ((tc.fov_x, jc.fov_x), (tc.fov_y, jc.fov_y)):
+        np.testing.assert_array_max_ulp(np.float32(t), np.float32(j),
+                                        maxulp=4)
+    assert float(tc.with_fov_y(40.0).fov_y) == pytest.approx(40.0, abs=1e-4)
+    assert float(tc.with_fov_x(70.0).fov_x) == pytest.approx(70.0, abs=1e-4)
+    st = tcam.stack_cameras([tc, tc.with_fov_y(40.0)])
+    assert st.fov_y.shape == (2,)
+
+
+def test_pinhole_projection_methods_match_jax():
+    """Projection, unprojection and ray directions: elementwise f32 with
+    a division, within 2 ulp (XLA may fuse the multiply and the add);
+    the two products (world_to_camera, world rays) within two ulp of
+    their largest value, as CPU matmuls may sum in another order."""
+    tc, jc = _pinhole_pair()
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-1, 1, size=(5, 7, 3)).astype(np.float32)
+    uv = rng.uniform(0, 240, size=(5, 7, 2)).astype(np.float32)
+    depth = rng.uniform(0.5, 4, size=(5, 7)).astype(np.float32)
+
+    def close(t, j):
+        j = np.asarray(j)
+        assert t.shape == j.shape and t.dtype == torch.float32
+        np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                                   atol=2 * np.spacing(np.abs(j).max()))
+
+    pc = tc.world_to_camera(torch.from_numpy(pts))
+    close(pc, jc.world_to_camera(jnp.asarray(pts)))
+    assert float(pc[..., 2].min()) > 0  # all in front of the camera
+    (tuv, td), (juv, jd) = tc.project(pc), jc.project(jnp.asarray(pc.numpy()))
+    close(tuv, juv)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    close(tc.unproject(torch.from_numpy(uv), torch.from_numpy(depth)),
+          jc.unproject(jnp.asarray(uv), jnp.asarray(depth)))
+    # project and unproject invert one another
+    back = tc.unproject(tuv, td)
+    np.testing.assert_allclose(back.numpy(), pc.numpy(), atol=1e-4)
+    rc = tc.ray_c(torch.from_numpy(uv))
+    close(rc, jc.ray_c(jnp.asarray(uv)))
+    np.testing.assert_allclose(torch.linalg.norm(rc, dim=-1).numpy(), 1.0,
+                               atol=1e-6)
+    (to, tdir), (jo, jdir) = (tc.ray_w(torch.from_numpy(uv)),
+                              jc.ray_w(jnp.asarray(uv)))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    close(tdir, jdir)
+
+
+def _mesh_pair(seed=3):
+    from vacancy_tpu import mesh as jmesh
+    from vacancy_tpu_torch import mesh as tmesh
+
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(30, 3)).astype(np.float32)
+    f = rng.integers(0, 30, size=(50, 3)).astype(np.int32)
+    f[0] = [4, 4, 9]  # a degenerate face: zero normal, no NaN
+    c = rng.integers(0, 256, size=(30, 3)).astype(np.float32)
+    return (tmesh.Mesh(vertices=v, faces=f, vertex_colors=c),
+            jmesh.Mesh(vertices=v, faces=f, vertex_colors=c))
+
+
+def _assert_mesh_fields_equal(t, j):
+    for name in ("vertices", "faces", "vertex_colors", "normals",
+                 "face_normals", "uv", "uv_indices", "normal_indices",
+                 "diffuse_texture"):
+        a, b = getattr(t, name), getattr(j, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("op", ["calc_face_normal", "calc_normal", "rotate",
+                                "translate", "transform", "scale",
+                                "scale_xyz", "copy", "clear",
+                                "random_color"])
+def test_mesh_methods_match_jax(op):
+    from vacancy_tpu import mesh as jmesh
+    from vacancy_tpu_torch import mesh as tmesh
+
+    t, j = _mesh_pair()
+    ang = 0.4
+    R = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang),
+                                                   0], [0, 0, 1]], np.float32)
+    tr = np.array([0.5, -1.25, 3.0], np.float32)
+    for m, pkg in ((t, tmesh), (j, jmesh)):
+        if op in ("rotate", "transform"):
+            m.calc_normal()  # the normals turn with the vertices
+        if op == "rotate":
+            m.rotate(R)
+        elif op == "translate":
+            m.translate(tr)
+        elif op == "transform":
+            m.transform(R, tr)
+        elif op == "scale":
+            m.scale(2.5)
+        elif op == "scale_xyz":
+            m.scale(2.0, 0.5, -1.0)
+        elif op == "clear":
+            m.calc_normal()
+            m.clear()
+        elif op == "random_color":
+            pkg.set_random_vertex_color(m, seed=11)
+        elif op != "copy":
+            getattr(m, op)()
+    if op == "copy":
+        tc, jc = t.copy(), j.copy()
+        _assert_mesh_fields_equal(tc, jc)
+        tc.vertices[0] = 99.0
+        assert t.vertices[0, 0] != 99.0  # a deep copy
+    if op == "clear":
+        assert t.num_vertices == t.num_faces == 0
+    if op == "calc_face_normal":
+        assert not np.isnan(t.face_normals).any()
+        np.testing.assert_array_equal(t.face_normals[0], 0.0)
+    _assert_mesh_fields_equal(t, j)
+
+
+def test_mesh_stats_match_jax():
+    from vacancy_tpu_torch import mesh as tmesh
+
+    t, j = _mesh_pair()
+    for m in (t, j):
+        m.translate(np.array([10.0, -20.0, 0.5], np.float32))
+    ts, js = t.calc_stats(), j.calc_stats()
+    for name in ("bb_min", "bb_max", "center"):
+        np.testing.assert_array_equal(getattr(ts, name), getattr(js, name))
+    empty = tmesh.Mesh().calc_stats()
+    assert (empty.bb_min > empty.bb_max).all()
+    np.testing.assert_array_equal(empty.center, 0.0)

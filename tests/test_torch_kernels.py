@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from vacancy_tpu_torch import _kernels, profile_turntable
+from vacancy_tpu_torch import _kernels, bench, profile_turntable
 from vacancy_tpu_torch import config as cfg
 from vacancy_tpu_torch.grid import GridSpec, VoxelGridState
 from vacancy_tpu_torch.ops import fusion_warp, mc_fused, warp_fused
@@ -69,6 +69,60 @@ def _mc_case(shape, device, seed=5):
         grid.axis_centers(2))]
 
 
+def _ortho_case(device, n_views=4, shape=(20, 26, 37), size=48):
+    """Unit voxels seen by orthographic cameras turned about world y, some
+    of the grid behind the first camera; random-normal images. Returns
+    kernel A's arguments (state, centers, the synthetic homography) and
+    the real camera-z rows."""
+    nz, ny, nx = shape
+    rng = np.random.default_rng(6)
+    grid = GridSpec((0.0,) * 3, (nx + 0.4, ny + 0.4, nz + 0.4), 1.0)
+    assert grid.shape_zyx == shape
+    center = np.array([nx, ny, nz]) / 2
+    w2c = np.tile(np.eye(4, dtype=np.float32), (n_views, 1, 1))
+    for i in range(n_views):
+        ang = -0.4 + 0.8 * i / max(n_views - 1, 1)
+        c, s = np.cos(ang), np.sin(ang)
+        rot = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+        w2c[i, :3, :3] = rot
+        # view 0 stands inside the grid, so part of it lies behind
+        depth = 0.0 if i == 0 else 2.0 * nz
+        w2c[i, :3, 3] = [size / 2, size / 2, depth] - rot @ center
+    un = rng.integers(0, 4, size=shape).astype(np.int32)
+    sdf = rng.normal(size=shape).astype(np.float32)
+    sdf[un == 0] = cfg.INVALID_SDF
+    imgs = rng.normal(size=(n_views, size, size)).astype(np.float32)
+    w2c_t = torch.from_numpy(w2c).to(device)
+    synth, zero2, one2, z_rows = fusion_warp.ortho_homography(w2c_t)
+    args = [torch.from_numpy(a).to(device) for a in (
+        sdf, un, grid.axis_centers(0), grid.axis_centers(1),
+        grid.axis_centers(2))] + [synth, zero2, one2,
+                                  torch.from_numpy(imgs).to(device)]
+    return args, z_rows
+
+
+def _density_state(shape, density, device, seed=9):
+    """A state whose MC flags have about ``density`` per edge stream: 0 (a
+    constant field), 1 (a checkerboard of signs) or signs drawn so that an
+    edge straddles with that probability."""
+    nz, ny, nx = shape
+    rng = np.random.default_rng(seed)
+    if density == 0.0:
+        sign = np.ones(shape)
+    elif density == 1.0:
+        k, j, i = np.indices(shape)
+        sign = np.where((k + j + i) % 2 == 0, 1.0, -1.0)
+    else:
+        p = (1 - np.sqrt(1 - 2 * density)) / 2  # 2 p (1 - p) = density
+        sign = np.where(rng.random(shape) < p, -1.0, 1.0)
+    sdf = (sign * rng.uniform(0.1, 1.0, size=shape)).astype(np.float32)
+    un = np.ones(shape, np.int32)
+    grid = GridSpec((0.0,) * 3, (nx + 0.4, ny + 0.4, nz + 0.4), 1.0)
+    return [torch.from_numpy(a).to(device) for a in (
+        sdf, un, grid.axis_centers(0), grid.axis_centers(1),
+        grid.axis_centers(2))]
+
+
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     args = [t.to("meta") for t in _warp_case((4, 5, 6), 2, "cpu")]
     with pytest.raises(ValueError, match="CUDA"):
@@ -94,6 +148,45 @@ def test_wrappers_on_cpu_equal_the_plain_versions():
         assert torch.equal(a, b)
     assert (warp_fused.warp_fuse_planes.launches,
             mc_fused.marching_cubes_fused.launches) == before
+
+
+def test_new_wrappers_on_cpu_equal_the_plain_versions():
+    """The probe, the count and scan passes and the fused kernel with
+    ortho rows and an ``out`` take their plain versions on CPU tensors and
+    count no launch."""
+    before = (bench.probe_scale.launches, mc_fused.mc_scan.launches,
+              mc_fused.mc_tile_counts.launches,
+              warp_fused.warp_fuse_planes.launches)
+    x = torch.arange(8 * 128, dtype=torch.float32).reshape(8, 128)
+    assert torch.equal(bench.probe_scale(x), x * 2.0)
+    assert bench.warm_probe("cpu")[0]
+    args = _density_state((5, 40, 60), 0.5, "cpu")
+    counts = mc_fused.mc_tile_counts(*args)
+    assert torch.equal(counts, mc_fused.mc_tile_counts_plain(*args[:2]))
+    tpp = mc_fused.tiles_per_plane(40, 60)
+    assert counts.shape == (5 * tpp, 4) and tpp == 3
+    off, tot, per_plane = mc_fused.mc_scan(counts, tpp)
+    st = mc_fused.mc_streams_plain(*args)
+    assert torch.equal(per_plane, st.plane_counts)
+    assert tot.tolist() == [st.vx_lin.numel(), st.vy_lin.numel(),
+                            st.vz_lin.numel(), st.c_lin.numel()]
+    assert torch.equal(off[0], torch.zeros(4, dtype=torch.int32))
+    assert torch.equal(off[-1] + counts[-1], tot)
+    (a, z_rows), opt = _ortho_case("cpu"), cfg.VoxelUpdateOption()
+    ps, pu = warp_fuse_planes_plain(*a, opt, True, None, z_rows)
+    s, u = a[0].clone(), a[1].clone()
+    inplace = a[:]
+    inplace[0], inplace[1] = s, u
+    rs, ru = warp_fused.warp_fuse_planes(*inplace, opt, True,
+                                         ortho_rows=z_rows, out=(s, u))
+    assert rs is s and ru is u
+    assert torch.equal(s, ps) and torch.equal(u, pu)
+    # the real z row matters: part of the grid lies behind view 0
+    qs, qu = warp_fuse_planes_plain(*a, opt, True)
+    assert not torch.equal(qu, pu)
+    assert before == (bench.probe_scale.launches, mc_fused.mc_scan.launches,
+                      mc_fused.mc_tile_counts.launches,
+                      warp_fused.warp_fuse_planes.launches)
 
 
 def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
@@ -146,11 +239,13 @@ def test_concurrent_builds_keep_to_their_own_files(monkeypatch, tmp_path):
                for src in _kernels._sources())
 
 
-@pytest.mark.parametrize("facade", [False, True], ids=["turntable", "facade"])
-def test_profile_refuses_a_cpu_device(facade):
+@pytest.mark.parametrize("which", ["turntable", "facade", "sweep"])
+def test_profile_refuses_a_cpu_device(which):
     with pytest.raises(ValueError, match="CUDA"):
-        if facade:
+        if which == "facade":
             profile_turntable.profile_facade(8, 2, 64, 48, "cpu")
+        elif which == "sweep":
+            profile_turntable.profile_sweep(8, 2, "cpu")
         else:
             profile_turntable.profile_turntable(8, 2, "cpu")
 
@@ -358,3 +453,151 @@ def test_tall_views_take_the_two_pass_engine_on_gpu(cuda_device):
         warp_fused.warp_fuse_planes(st.sdf, st.update_num, *centers, w2c, pp,
                                     fl, imgs, cfg.VoxelUpdateOption(), True)
     assert warp_fused.warp_fuse_planes.launches == before[0]
+
+
+@pytest.mark.cuda
+def test_probe_kernel_equals_plain_on_gpu(cuda_device):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(
+        rng.normal(size=bench.PROBE_SHAPE).astype(np.float32)).to(cuda_device)
+    before = bench.probe_scale.launches
+    k = bench.probe_scale(x)
+    torch.cuda.synchronize()
+    assert bench.probe_scale.launches == before + 1
+    assert torch.equal(k.view(torch.int32),
+                       bench.probe_scale_plain(x).view(torch.int32))
+    ok, seconds = bench.warm_probe(cuda_device)
+    assert ok and seconds > 0
+    assert bench.probe_scale.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [True, False], ids=["bilinear", "nn"])
+@pytest.mark.parametrize("rule", ["MAX", "WEIGHTED_AVERAGE"])
+def test_warp_kernel_ortho_rows_equal_plain_on_gpu(cuda_device, rule, linear):
+    """Kernel A with the four orthographic coefficients against the
+    two-pass fold with ``z_rows``: update_num exact, sdf bitwise, also
+    when it writes over its input."""
+    args, z_rows = _ortho_case(cuda_device)
+    opt = cfg.VoxelUpdateOption(
+        voxel_update=cfg.VoxelUpdate[rule], use_truncation=True,
+        truncation_band=0.4, update_outside=cfg.UpdateOutsideImage.MAX)
+    before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    ks, ku = warp_fused.warp_fuse_planes(*args, opt, linear,
+                                         ortho_rows=z_rows)
+    ps, pu = warp_fuse_planes_plain(*args, opt, linear, None, z_rows)
+    qs, qu = warp_fuse_planes_plain(*args, opt, linear)  # no behind mask
+    torch.cuda.synchronize()
+    assert (warp_fused.warp_fuse_planes.launches,
+            interp_rows.launches) == (before[0] + 1, before[1])
+    assert torch.equal(ku, pu)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert not torch.equal(qu, pu)
+    s, u = args[0].clone(), args[1].clone()
+    warp_fused.warp_fuse_planes(s, u, *args[2:], opt, linear,
+                                ortho_rows=z_rows, out=(s, u))
+    torch.cuda.synchronize()
+    assert torch.equal(u, pu)
+    assert torch.equal(s.view(torch.int32), ps.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_ortho_views_that_fit_take_the_fused_kernel_on_gpu(cuda_device):
+    """``carve_views_warp_ortho`` launches kernel A for views that fit it
+    and kernel C for taller ones, and both equal the plain fold."""
+    for size, fused in ((48, True), (2000, False)):
+        nz, ny, nx = 8, 9, 10
+        grid = GridSpec((0.0,) * 3, (nx + 0.4, ny + 0.4, nz + 0.4), 1.0)
+        rng = np.random.default_rng(1)
+        w2c = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+        w2c[:, :3, 3] = [32 - nx / 2, size / 2 - ny / 2, 5.0]
+        w2c[1, 2, 3] = -4.0  # half of the grid lies behind view 1
+        w2c = torch.from_numpy(w2c).to(cuda_device)
+        imgs = torch.from_numpy(rng.normal(size=(2, size, 64)).astype(
+            np.float32)).to(cuda_device)
+        st = VoxelGridState.create(grid, cuda_device)
+        before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+        out = fusion_warp.carve_views_warp_ortho(st, grid, w2c, imgs)
+        after = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+        assert after == ((before[0] + 1, before[1]) if fused
+                         else (before[0], before[1] + 4))
+        synth, zero2, one2, z_rows = fusion_warp.ortho_homography(w2c)
+        plain_args = (
+            st.sdf, st.update_num,
+            *(grid.axis_centers_t(a, cuda_device) for a in range(3)), synth,
+            zero2, one2, imgs, cfg.VoxelUpdateOption(), True, None)
+        ps, pu = warp_fuse_planes_plain(*plain_args, z_rows)
+        _, qu = warp_fuse_planes_plain(*plain_args)  # no behind mask
+        torch.cuda.synchronize()
+        assert torch.equal(out.update_num, pu) and bool((pu > 0).any())
+        assert not torch.equal(qu, pu)
+        assert torch.equal(out.sdf.view(torch.int32), ps.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [240, 2000], ids=["kernel-a", "kernel-c"])
+def test_blocked_carve_equals_unblocked_on_gpu(cuda_device, h):
+    """The z-chunked carve updates the state in place and equals one
+    ``carve_views_warp`` bit for bit, through kernel A (in place) and
+    through the two-pass engine with kernel C."""
+    grid, (w2c, pp, fl, imgs) = _tall_case(cuda_device, h=h, w=96)
+    want = fusion_warp.carve_views_warp(
+        VoxelGridState.create(grid, cuda_device), grid, w2c, pp, fl, imgs)
+    st = VoxelGridState.create(grid, cuda_device)
+    before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    got = fusion_warp.carve_views_warp_blocked(st, grid, w2c, pp, fl, imgs,
+                                               chunk_nz=4)  # snaps to 3
+    torch.cuda.synchronize()
+    after = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    chunks = grid.shape_zyx[0] // 3
+    assert grid.shape_zyx[0] == 18
+    assert after == ((before[0] + chunks, before[1]) if h == 240
+                     else (before[0], before[1] + chunks * 2 * 2))
+    assert got.sdf is st.sdf and got.update_num is st.update_num
+    assert torch.equal(got.update_num, want.update_num)
+    assert bool((want.update_num > 0).any())
+    assert torch.equal(got.sdf.view(torch.int32), want.sdf.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 7), (1, 1), (64, 1024)],
+                         ids=["300x7", "one-tile", "64x1024"])
+def test_mc_scan_kernel_equals_cumsum_on_gpu(cuda_device, shape):
+    """B's scan pass on its own against torch.cumsum: exclusive offsets,
+    totals and per-plane counts of random tile counts."""
+    nz, tpp = shape
+    rng = np.random.default_rng(11)
+    counts = torch.from_numpy(rng.integers(
+        0, 1025, size=(nz * tpp, 4)).astype(np.int32)).to(cuda_device)
+    before = mc_fused.mc_scan.launches
+    k = mc_fused.mc_scan(counts, tpp)
+    p = mc_fused.mc_scan_plain(counts, tpp)
+    torch.cuda.synchronize()
+    assert mc_fused.mc_scan.launches == before + 1
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    with pytest.raises(ValueError, match="planes"):
+        mc_fused.mc_scan(counts, tpp + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.5, 1.0])
+def test_mc_count_and_emit_equal_mask_compaction_on_gpu(cuda_device,
+                                                        density):
+    """B's count pass against the dense flags summed per tile, and its
+    emit pass against boolean-mask compaction, at flag densities of about
+    0, 0.02, 0.5 and 1 per edge stream."""
+    args = _density_state((24, 40, 52), density, cuda_device)
+    before = mc_fused.mc_tile_counts.launches
+    counts = mc_fused.mc_tile_counts(*args)
+    assert mc_fused.mc_tile_counts.launches == before + 1
+    assert torch.equal(counts, mc_fused.mc_tile_counts_plain(*args[:2]))
+    k = mc_fused.marching_cubes_fused(*args)
+    p = mc_fused.mc_streams_plain(*args)
+    torch.cuda.synchronize()
+    n_edges = 24 * 40 * 52
+    got = k.vx_lin.numel() / n_edges
+    assert abs(got - density) < 0.05, got
+    for a, b in zip(k.as_tuple(), p.as_tuple()):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -71,6 +71,95 @@ class PinholeCamera:
             principal_point, focal_length, c2w, w2c, width, height, device
         )
 
+    def with_c2w(self, c2w: np.ndarray) -> "PinholeCamera":
+        """Functional set_c2w: recomputes the w2c inverse
+        (camera.cc:39-42)."""
+        c2w = np.asarray(c2w, np.float64)
+        dev = self.c2w.device
+        return dataclasses.replace(self, c2w=_f32(c2w, dev),
+                                   w2c=_f32(_inverse_pose(c2w), dev))
+
+    def with_principal_point(self, pp: np.ndarray) -> "PinholeCamera":
+        """Functional set_principal_point (camera.cc:97-100)."""
+        return dataclasses.replace(
+            self, principal_point=_f32(pp, self.principal_point.device))
+
+    def with_focal_length(self, fl: np.ndarray) -> "PinholeCamera":
+        """Functional set_focal_length (camera.cc:102-104)."""
+        return dataclasses.replace(
+            self, focal_length=_f32(fl, self.focal_length.device))
+
+    def with_fov_x(self, fov_x_deg: float) -> "PinholeCamera":
+        """Functional set_fov_x: same focal length per pixel for x and y
+        (camera.cc:106-112)."""
+        f = np.float32(
+            self.width * 0.5 / np.tan(np.radians(fov_x_deg) * 0.5)
+        )
+        return self.with_focal_length(np.array([f, f], np.float32))
+
+    def with_fov_y(self, fov_y_deg: float) -> "PinholeCamera":
+        """Functional set_fov_y: same focal length per pixel for x and y
+        (camera.cc:114-120)."""
+        f = np.float32(
+            self.height * 0.5 / np.tan(np.radians(fov_y_deg) * 0.5)
+        )
+        return self.with_focal_length(np.array([f, f], np.float32))
+
+    @property
+    def fov_x(self) -> torch.Tensor:
+        return torch.rad2deg(
+            2.0 * torch.atan(self.width * 0.5 / self.focal_length[..., 0])
+        )
+
+    @property
+    def fov_y(self) -> torch.Tensor:
+        return torch.rad2deg(
+            2.0 * torch.atan(self.height * 0.5 / self.focal_length[..., 1])
+        )
+
+    def world_to_camera(self, points_w: torch.Tensor) -> torch.Tensor:
+        """Transform world points [..., 3] into camera space."""
+        r = self.w2c[..., :3, :3]
+        t = self.w2c[..., :3, 3]
+        return points_w @ r.transpose(-1, -2) + t
+
+    def project(self, points_c: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Camera-space points [..., 3] -> (image uv [..., 2], depth)."""
+        z = points_c[..., 2]
+        uv = (
+            self.focal_length / z[..., None] * points_c[..., :2]
+            + self.principal_point
+        )
+        return uv, z
+
+    def unproject(self, uv: torch.Tensor, depth: torch.Tensor
+                  ) -> torch.Tensor:
+        """Image points + depth -> camera-space points
+        (camera.cc:157-162)."""
+        xy = (uv - self.principal_point) * depth[..., None] / self.focal_length
+        return torch.cat([xy, depth[..., None]], dim=-1)
+
+    def ray_c(self, uv: torch.Tensor) -> torch.Tensor:
+        """Normalized camera-space ray directions (camera.cc:178-183)."""
+        d = torch.cat(
+            [
+                (uv - self.principal_point) / self.focal_length,
+                torch.ones(uv.shape[:-1] + (1,), dtype=uv.dtype,
+                           device=uv.device),
+            ],
+            dim=-1,
+        )
+        return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+    def ray_w(self, uv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """World-space ray (origin, direction) per pixel
+        (camera.cc:172-188)."""
+        d = self.ray_c(uv)
+        rot = self.c2w[..., :3, :3]
+        org = torch.broadcast_to(self.c2w[..., :3, 3], d.shape)
+        return org, d @ rot.transpose(-1, -2)
+
 
 def _f32(a, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device)

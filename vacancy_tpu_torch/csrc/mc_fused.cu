@@ -20,6 +20,11 @@
 //      four totals and per-plane counts;
 //   3. emit: the count pass's flags again, ranked in the tile with warp
 //      ballots and popc, written to buffers sized exactly to the totals.
+// Each pass has a C entry point of its own (vt_mc_count, vt_mc_scan,
+// vt_mc_emit), so the scan and the compaction can be held against
+// torch.cumsum and boolean-mask compaction by themselves -- what the TPU
+// package's cumsum_kernel and compact_kernel harnesses
+// (tests/test_mc_fused.py) do for its in-kernel primitives.
 //
 // What bounds it on the card: reading the state (8 bytes per voxel, 134 MB
 // at 256^3) twice, plus the validity of up to 7 neighbouring cubes for
@@ -330,24 +335,29 @@ extern "C" int vt_mc_tiles(int ny, int nx) {
   return (ny * nx + TILE - 1) / TILE;
 }
 
-// Passes 1 and 2: tile_counts/tile_offsets are [n_tiles, 4], totals [4],
-// plane_counts [nz, 4], n_tiles = nz * vt_mc_tiles(ny, nx).
-extern "C" int vt_mc_count_scan(const float* sdf, const int* un,
-                                const float* cx, const float* cy,
-                                const float* cz, int nz, int ny, int nx,
-                                float iso, int linear, int* tile_counts,
-                                int* tile_offsets, int* totals,
-                                int* plane_counts, void* stream) {
+// Pass 1: tile_counts is [n_tiles, 4], n_tiles = nz * vt_mc_tiles(ny, nx).
+extern "C" int vt_mc_count(const float* sdf, const int* un, const float* cx,
+                           const float* cy, const float* cz, int nz, int ny,
+                           int nx, float iso, int linear, int* tile_counts,
+                           void* stream) {
   if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
   const McArgs a = make_args(sdf, un, cx, cy, cz, nz, ny, nx, iso, linear);
-  const int n_tiles = nz * a.tiles_per_plane;
-  cudaStream_t s = (cudaStream_t)stream;
-  mc_count_kernel<<<n_tiles, NT, 0, s>>>(a, tile_counts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mc_scan_kernel<<<1, SCAN_NT, 0, s>>>(tile_counts, tile_offsets, totals,
-                                       plane_counts, n_tiles,
-                                       a.tiles_per_plane, nz);
+  mc_count_kernel<<<nz * a.tiles_per_plane, NT, 0, (cudaStream_t)stream>>>(
+      a, tile_counts);
+  return (int)cudaGetLastError();
+}
+
+// Pass 2 on its own: tile_counts [n_tiles, 4] -> exclusive tile_offsets
+// [n_tiles, 4], totals [4] and plane_counts [nz, 4], where
+// n_tiles = nz * tiles_per_plane. One CTA walks every tile.
+extern "C" int vt_mc_scan(const int* tile_counts, int* tile_offsets,
+                          int* totals, int* plane_counts, int n_tiles,
+                          int tiles_per_plane, int nz, void* stream) {
+  if (nz < 1 || tiles_per_plane < 1 || n_tiles != nz * tiles_per_plane)
+    return (int)cudaErrorInvalidValue;
+  mc_scan_kernel<<<1, SCAN_NT, 0, (cudaStream_t)stream>>>(
+      tile_counts, tile_offsets, totals, plane_counts, n_tiles,
+      tiles_per_plane, nz);
   return (int)cudaGetLastError();
 }
 

@@ -19,12 +19,22 @@
 // memory and never reaches device memory; a warp owns 32 consecutive x, so
 // every state access is one coalesced 128-byte line.
 //
+// Orthographic views (the TPU kernel's `ortho` flag): the caller passes the
+// synthetic homography (third row (0, 0, 0, 1), unit focal length, zero
+// principal point), whose divisor S is identically 1, plus each view's real
+// camera-z row as four more coefficients; the behind-camera mask is then
+// z_cam < 0 with z_cam summed in the two-pass engine's order,
+// ((rz2*z + rz1*y) + rz0*x) + rt (ops/fusion_warp.warp_fold); S < 0 never
+// fires there.
+//
 // Numerics: the build uses -fmad=false and IEEE division, and every
 // expression keeps the operation order of ops/warp_fused.py and
 // ops/fusion.py, so the result is bitwise the plain PyTorch version's.
 //
 // The kernel allocates nothing; it runs on the caller's stream. The C entry
-// point returns the launch's cudaError_t.
+// point returns the launch's cudaError_t. A thread reads and writes only its
+// own voxel, so the output state may be the input state (an update in
+// place, which the z-chunked carve uses at 1024^3).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -36,6 +46,7 @@ namespace {
 constexpr int TX = 32;         // x-tile width: one warp
 constexpr int NTHREADS = 256;  // 8 warps
 constexpr int NCOEF = 16;      // R row-major 9, t 3, fx fy cx cy
+constexpr int NCOEF_ORTHO = 20;  // + the real camera-z row rz0 rz1 rz2 rt
 
 struct WarpArgs {
   const float* sdf_in;
@@ -45,7 +56,7 @@ struct WarpArgs {
   const float* cx;
   const float* cy;
   const float* cz;
-  const float* coef;  // [V, 16]
+  const float* coef;  // [V, 16], or [V, 20] with ortho
   const float* vmax;  // [V] per-image max of the raw images
   const float* imgs;  // [V, H, W] raw images (clamped at sampling)
   int nz, ny, nx, n_views, h, w;
@@ -57,6 +68,7 @@ struct WarpArgs {
   int use_trunc;
   float trunc_thresh;  // -1 or -band (metric)
   float weight;
+  int ortho;  // 1 = behind mask from the real camera-z row (coef 16..19)
 };
 
 __device__ __forceinline__ float clip_finite(float x, float hi) {
@@ -111,14 +123,17 @@ warp_fused_kernel(WarpArgs a) {
   const float fh = (float)a.h;
   const float fw = (float)a.w;
   const int64_t plane = (int64_t)z * a.ny * a.nx;
+  const int ncoef = a.ortho ? NCOEF_ORTHO : NCOEF;
 
   for (int v = 0; v < a.n_views; ++v) {
-    const float* c = a.coef + (int64_t)v * NCOEF;
+    const float* c = a.coef + (int64_t)v * ncoef;
     const float r00 = c[0], r01 = c[1], r02 = c[2];
     const float r10 = c[3], r11 = c[4], r12 = c[5];
     const float r20 = c[6], r21 = c[7], r22 = c[8];
     const float t0 = c[9], t1 = c[10], t2 = c[11];
     const float fx = c[12], fy = c[13], cxp = c[14], cyp = c[15];
+    const float rz0 = a.ortho ? c[16] : 0.0f, rz1 = a.ortho ? c[17] : 0.0f;
+    const float rt = a.ortho ? c[19] : 0.0f;
     const float max_i = a.vmax[v];
     float m;
     m = r02 * czk;
@@ -127,6 +142,7 @@ warp_fused_kernel(WarpArgs a) {
     const float b0 = m + t1;
     m = r22 * czk;
     const float c0 = m + t2;
+    const float zk = a.ortho ? c[18] * czk : 0.0f;  // rz2 * z
     const float* img = a.imgs + (int64_t)v * a.h * a.w;
 
     // ---- pass 1: inter[r][tx] = image row r sampled at u_eq ----
@@ -171,7 +187,13 @@ warp_fused_kernel(WarpArgs a) {
       const float v_pos = clip_finite(v_star, fh);
       float dist = sample(inter + tx, TX, v_pos, a.y0, a.y1, a.linear, false);
 
-      const bool behind = s_ < 0.0f;
+      bool behind = s_ < 0.0f;
+      if (a.ortho) {
+        const float zy = rz1 * yc;
+        const float zx = rz0 * xc;
+        const float z_cam = ((zk + zy) + zx) + rt;
+        behind = behind || (z_cam < 0.0f);
+      }
       // non-finite (inf or NaN) projected coordinates
       const bool bad =
           !(fabsf(u_star) <= FLT_MAX && fabsf(v_star) <= FLT_MAX);
@@ -221,13 +243,13 @@ extern "C" int vt_warp_fuse_planes(
     const float* vmax, const float* imgs, int nz, int ny, int nx, int n_views,
     int h, int w, int x0, int y0, int x1, int y1, int linear, int rule,
     int outside, int cap, int use_trunc, float trunc_thresh, float weight,
-    void* stream) {
+    int ortho, void* stream) {
   if (nz <= 0 || ny <= 0 || nx <= 0 || n_views <= 0 || h <= 0 || w <= 0)
     return (int)cudaErrorInvalidValue;
   if (nz > 65535) return (int)cudaErrorInvalidValue;
   WarpArgs a{sdf_in, un_in, sdf_out, un_out, cx, cy, cz, coef, vmax, imgs,
              nz, ny, nx, n_views, h, w, x0, y0, x1, y1, linear, rule,
-             outside, cap, use_trunc, trunc_thresh, weight};
+             outside, cap, use_trunc, trunc_thresh, weight, ortho};
   const size_t smem = (size_t)h * TX * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       warp_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -112,14 +112,16 @@ class VoxelGridState:
 def state_from_numpy(sdf: np.ndarray, update_num: np.ndarray,
                      device) -> VoxelGridState:
     """Load a state given as numpy arrays (e.g. a JAX ``VoxelGridState``
-    passed through ``np.asarray``) onto ``device``."""
+    passed through ``np.asarray``) onto ``device``. Always a copy: the
+    state is updated in place by ``carve_views_warp_blocked``, and must
+    not write through to the caller's arrays."""
     sdf = np.require(sdf, np.float32, ["C", "W"])
     update_num = np.require(update_num, np.int32, ["C", "W"])
     if sdf.ndim != 3 or sdf.shape != update_num.shape:
         raise ValueError(f"state shapes differ: {sdf.shape} {update_num.shape}")
     return VoxelGridState(
-        sdf=torch.from_numpy(sdf).to(device),
-        update_num=torch.from_numpy(update_num).to(device),
+        sdf=torch.from_numpy(sdf).to(device, copy=True),
+        update_num=torch.from_numpy(update_num).to(device, copy=True),
     )
 
 

@@ -20,8 +20,12 @@ CUDA state it launches the fused warp kernel (``ops/warp_fused.py``,
 kernel A) when the views fit its shared-memory intermediate, and runs the
 two-pass engine ``warp_fold`` with ``interp_rows`` (kernel C) for each
 pass otherwise -- the JAX package's ``_fused_view_chunk`` -> None branch.
-Orthographic cameras always take the two-pass engine. On CPU tensors
-both engines are the same plain fold.
+Orthographic cameras make the same choice (kernel A carries their real
+camera-z rows). On CPU tensors both engines are the same plain fold.
+
+``carve_views_warp_blocked`` is the same fusion as a host loop over
+z-chunks that updates the state in place, for grids whose per-view fields
+would not fit the card (1024^3).
 """
 
 from __future__ import annotations
@@ -262,6 +266,19 @@ def carve_views_warp_ortho(
                                    roi)
 
 
+def ortho_homography(w2c: torch.Tensor):
+    """What the warp engine takes for orthographic views ``w2c``
+    f32[V, 4, 4]: (the synthetic homography with third row (0, 0, 0, 1),
+    zero principal points f32[V, 2], unit focal lengths f32[V, 2], and
+    the real camera-z rows f32[V, 4] for the behind-camera mask)."""
+    w2c_synth = w2c.clone()
+    w2c_synth[:, 2, :] = torch.tensor([0.0, 0.0, 0.0, 1.0],
+                                      dtype=torch.float32, device=w2c.device)
+    zero2 = torch.zeros((w2c.shape[0], 2), dtype=torch.float32,
+                        device=w2c.device)
+    return w2c_synth, zero2, torch.ones_like(zero2), w2c[:, 2, :].contiguous()
+
+
 def _carve_views_warp_ortho(
     state: VoxelGridState,
     grid: GridSpec,
@@ -281,19 +298,87 @@ def _carve_views_warp_ortho(
     u = x_cam, v = y_cam (camera.cc:196-212). The synthetic homography
     loses the behind-camera test (S < 0 never fires), so the real camera
     z, affine in the voxel index, is evaluated as one broadcast
-    expression per view. Views run the two-pass engine with ``sampler``
-    (kernel C on a CUDA state); the fused kernel's four ortho
-    coefficients are not ported yet."""
-    v = w2c.shape[0]
-    w2c_synth = w2c.clone()
-    w2c_synth[:, 2, :] = torch.tensor([0.0, 0.0, 0.0, 1.0],
-                                      dtype=torch.float32, device=w2c.device)
-    zero2 = torch.zeros((v, 2), dtype=torch.float32, device=w2c.device)
+    expression per view by the two-pass engine, and carried as four more
+    coefficients per view by the fused warp kernel. The engine is chosen
+    by the image height before any launch, as in ``carve_views_warp``;
+    ``sampler`` is the two-pass engine's row sampler (kernel C on a CUDA
+    state)."""
     dev = state.sdf.device
-    sdf, un = warp_fold(
-        state.sdf, state.update_num, grid.axis_centers_t(0, dev),
-        grid.axis_centers_t(1, dev), grid.axis_centers_t(2, dev), w2c_synth,
-        zero2, torch.ones_like(zero2), sdf_images, opt, linear, roi, sampler,
-        z_rows=w2c[:, 2, :],
-    )
+    w2c_synth, zero2, one2, z_rows = ortho_homography(w2c)
+    args = (state.sdf, state.update_num, grid.axis_centers_t(0, dev),
+            grid.axis_centers_t(1, dev), grid.axis_centers_t(2, dev),
+            w2c_synth, zero2, one2, sdf_images, opt, linear, roi)
+    if _fused_kernel_takes(dev, sdf_images.shape[1]):
+        sdf, un = warp_fused.warp_fuse_planes(*args, ortho_rows=z_rows)
+    else:
+        sdf, un = warp_fold(*args, sampler, z_rows=z_rows)
     return VoxelGridState(sdf=sdf, update_num=un)
+
+
+def _snap_chunk_nz(nz: int, chunk_nz: int) -> int:
+    """The largest divisor of ``nz`` at most ``chunk_nz`` (always exists:
+    1). Exact tiling only: a clamped or overlapping last chunk would fuse
+    its voxels twice and double-count update_num."""
+    if nz % chunk_nz == 0:
+        return chunk_nz
+    snapped = max(d for d in range(1, chunk_nz + 1) if nz % d == 0)
+    if snapped < max(8, chunk_nz // 8):
+        # a (near-)prime nz degrades to per-plane launches; make the
+        # cliff visible so the caller can pad the grid instead
+        LOGW("carve_views_warp_blocked: nz=%d has no divisor near "
+             "chunk_nz=%d; snapping to %d planes per chunk (%d "
+             "dispatches). Pad the grid z extent to a composite size for "
+             "full-speed chunking.", nz, chunk_nz, snapped, nz // snapped)
+    return snapped
+
+
+def carve_views_warp_blocked(
+    state: VoxelGridState,
+    grid: GridSpec,
+    w2c: torch.Tensor,
+    principal_point: torch.Tensor,
+    focal_length: torch.Tensor,
+    sdf_images: torch.Tensor,
+    opt: VoxelUpdateOption = VoxelUpdateOption(),
+    linear: bool = True,
+    chunk_nz: int = 128,
+    roi: Optional[Tuple[int, int, int, int]] = None,
+) -> VoxelGridState:
+    """Warp fusion for grids whose per-view fields exceed the card's
+    memory (1024^3): a host loop over z-chunks of ``chunk_nz`` planes,
+    each fused by the engine ``carve_views_warp`` would pick (the warp is
+    separable per z, so the result is identical to it, bit for bit).
+
+    With more than ``chunk_nz`` planes the state is UPDATED IN PLACE and
+    the returned state holds the caller's tensors (the JAX package donates
+    its buffers): kernel A writes each chunk over its input, and the
+    two-pass engine's chunk result is copied over it. The peak is the
+    state (8 bytes per voxel, 8.6 GB at 1024^3) plus the images, plus, for
+    the two-pass engine only, one view's fields over one chunk (about 10
+    arrays of ``chunk_nz * max(h, ny) * nx`` f32: ~11 GB for 2160-row
+    views at 1024^3, where the unchunked fold would need eight times
+    that). A grid of at most ``chunk_nz`` planes is one
+    ``carve_views_warp`` call, which returns new tensors."""
+    w2c, principal_point, focal_length, sdf_images = _batched(
+        w2c, principal_point, focal_length, sdf_images)
+    nz = state.sdf.shape[0]
+    if nz <= chunk_nz:
+        return carve_views_warp(state, grid, w2c, principal_point,
+                                focal_length, sdf_images, opt, linear, roi)
+    chunk_nz = _snap_chunk_nz(nz, chunk_nz)
+    dev = state.sdf.device
+    cx, cy, cz = (grid.axis_centers_t(a, dev) for a in range(3))
+    fused = _fused_kernel_takes(dev, sdf_images.shape[1])
+    for z_lo in range(0, nz, chunk_nz):
+        s = state.sdf[z_lo:z_lo + chunk_nz]
+        u = state.update_num[z_lo:z_lo + chunk_nz]
+        args = (s, u, cx, cy, cz[z_lo:z_lo + chunk_nz].contiguous(), w2c,
+                principal_point, focal_length, sdf_images, opt, linear, roi)
+        if fused:
+            warp_fused.warp_fuse_planes(*args, out=(s, u))
+        else:
+            new_s, new_u = warp_fold(*args, interp_rows)
+            s.copy_(new_s)
+            u.copy_(new_u)
+            del new_s, new_u
+    return state

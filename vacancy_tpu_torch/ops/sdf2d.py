@@ -136,3 +136,24 @@ def make_signed_distance_field(
         sdf = torch.where(in_roi, trunc, sdf)
 
     return sdf
+
+
+def signed_distance_to_color(
+    sdf: np.ndarray, min_negative_d: float = -1.0, max_positive_d: float = 1.0
+) -> np.ndarray:
+    """SDF -> red(outside)/blue(inside) debug image on the host
+    (voxel_carver.cc:239-267)."""
+    assert min_negative_d < 0 and max_positive_d > 0
+    sdf = np.asarray(sdf, np.float32)
+    pos = (max_positive_d - sdf) / max_positive_d
+    neg = (sdf - min_negative_d) / (-min_negative_d)
+    pos = np.clip(pos, 0.0, 1.0)
+    neg = np.clip(neg, 0.0, 1.0)
+    out = np.empty(sdf.shape + (3,), np.uint8)
+    is_pos = sdf > 0
+    out[..., 0] = np.where(is_pos, 255, (255 * neg).astype(np.uint8))
+    out[..., 1] = np.where(
+        is_pos, (255 * pos).astype(np.uint8), (255 * neg).astype(np.uint8)
+    )
+    out[..., 2] = np.where(is_pos, (255 * pos).astype(np.uint8), 255)
+    return out

@@ -11,6 +11,11 @@ on an H100), so the kernel takes images of at most ``max_fused_rows``
 rows (1816 there); ``ops/fusion_warp.carve_views_warp`` sends taller
 views to the two-pass engine instead.
 
+With ``ortho_rows`` the views are orthographic: the caller passes the
+synthetic homography (third row ``(0, 0, 0, 1)``, unit focal length, zero
+principal point) and each view's real camera-z row, which the kernel
+carries as four more coefficients for the behind-camera mask.
+
 Its plain version, ``warp_fuse_planes_plain``, is that two-pass engine
 (``ops/fusion_warp.warp_fold``) with the plain row sampler. Float
 expressions keep the JAX package's operation order, and the kernel is
@@ -68,6 +73,7 @@ def warp_fuse_planes_plain(
     opt: VoxelUpdateOption,
     linear: bool,
     roi: Optional[Tuple[int, int, int, int]] = None,
+    ortho_rows: Optional[torch.Tensor] = None,  # f32[V, 4]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold every view into (sdf, un) in order, two passes per view (the
     fused warp kernel's plain version): the two-pass engine with the
@@ -75,12 +81,14 @@ def warp_fuse_planes_plain(
     new tensors."""
     return fusion_warp.warp_fold(
         sdf, un, cx, cy, cz, w2c, principal_point, focal_length, sdf_images,
-        opt, linear, roi, interp_rows_plain,
+        opt, linear, roi, interp_rows_plain, z_rows=ortho_rows,
     )
 
 
-def _coefficients(w2c, principal_point, focal_length) -> torch.Tensor:
-    """f32[V, 16] per view: R row-major (9), t (3), fx, fy, cx, cy."""
+def _coefficients(w2c, principal_point, focal_length,
+                  ortho_rows=None) -> torch.Tensor:
+    """f32[V, 16] per view: R row-major (9), t (3), fx, fy, cx, cy; with
+    ``ortho_rows`` f32[V, 20]: + the real camera-z row (rz0 rz1 rz2 rt)."""
     v = w2c.shape[0]
     return torch.cat(
         [
@@ -88,7 +96,7 @@ def _coefficients(w2c, principal_point, focal_length) -> torch.Tensor:
             w2c[:, :3, 3],
             focal_length[:, :1], focal_length[:, 1:2],
             principal_point[:, :1], principal_point[:, 1:2],
-        ],
+        ] + ([] if ortho_rows is None else [ortho_rows]),
         dim=1,
     ).to(torch.float32).contiguous()
 
@@ -106,8 +114,18 @@ def warp_fuse_planes(
     opt: VoxelUpdateOption,
     linear: bool,
     roi: Optional[Tuple[int, int, int, int]] = None,
+    ortho_rows: Optional[torch.Tensor] = None,  # f32[V, 4] real z rows
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fuse every view, in order, into (sdf, un); returns new tensors.
+    """Fuse every view, in order, into (sdf, un); returns new tensors, or
+    ``out`` = (sdf, update_num) tensors to write, which may be the inputs
+    themselves (an update in place: each voxel is read and written by one
+    thread).
+
+    With ``ortho_rows`` the caller passes the SYNTHETIC orthographic
+    homography in ``w2c`` (third row (0, 0, 0, 1)), unit ``focal_length``
+    and zero ``principal_point``, plus each view's real camera-z row for
+    the behind-camera mask.
 
     CPU tensors take the plain two-pass version. CUDA tensors launch the
     kernel once for all views (``warp_fuse_planes.launches`` counts
@@ -116,10 +134,15 @@ def warp_fuse_planes(
     ``max_fused_rows`` of the card's shared-memory opt-in limit), or on
     a non-zero cudaError_t from the launch."""
     if sdf.device.type == "cpu":
-        return warp_fuse_planes_plain(
+        new_sdf, new_un = warp_fuse_planes_plain(
             sdf, un, cx, cy, cz, w2c, principal_point, focal_length,
-            sdf_images, opt, linear, roi,
+            sdf_images, opt, linear, roi, ortho_rows,
         )
+        if out is None:
+            return new_sdf, new_un
+        out[0].copy_(new_sdf)
+        out[1].copy_(new_un)
+        return out
     nz, ny, nx = sdf.shape
     v, h, w = sdf_images.shape
     _kernels.check_tensor("sdf", sdf, torch.float32, (nz, ny, nx))
@@ -128,9 +151,12 @@ def warp_fuse_planes(
     _kernels.check_tensor("cy", cy, torch.float32, (ny,))
     _kernels.check_tensor("cz", cz, torch.float32, (nz,))
     _kernels.check_tensor("sdf_images", sdf_images, torch.float32, (v, h, w))
-    for name, t, shape in (("w2c", w2c, (v, 4, 4)),
-                           ("principal_point", principal_point, (v, 2)),
-                           ("focal_length", focal_length, (v, 2))):
+    per_view = [("w2c", w2c, (v, 4, 4)),
+                ("principal_point", principal_point, (v, 2)),
+                ("focal_length", focal_length, (v, 2))]
+    if ortho_rows is not None:
+        per_view.append(("ortho_rows", ortho_rows, (v, 4)))
+    for name, t, shape in per_view:
         if t.device != sdf.device or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape} on {sdf.device}")
     x0, y0, x1, y1 = roi or (0, 0, w - 1, h - 1)
@@ -143,12 +169,21 @@ def warp_fuse_planes(
             f"{max_fused_rows(optin)} rows on {sdf.device} ({optin} bytes of "
             f"shared memory per block), got {h}: carve_views_warp takes the "
             f"two-pass engine for such views")
-    out_sdf = torch.empty_like(sdf)
-    out_un = torch.empty_like(un)
+    if out is None:
+        out_sdf, out_un = torch.empty_like(sdf), torch.empty_like(un)
+    else:
+        out_sdf, out_un = out
+        _kernels.check_tensor("out sdf", out_sdf, torch.float32, (nz, ny, nx))
+        _kernels.check_tensor("out update_num", out_un, torch.int32,
+                              (nz, ny, nx))
     if v == 0:
-        return out_sdf.copy_(sdf), out_un.copy_(un)
+        if out_sdf.data_ptr() != sdf.data_ptr():
+            out_sdf.copy_(sdf)
+        if out_un.data_ptr() != un.data_ptr():
+            out_un.copy_(un)
+        return out_sdf, out_un
 
-    coef = _coefficients(w2c, principal_point, focal_length)
+    coef = _coefficients(w2c, principal_point, focal_length, ortho_rows)
     vmax = sdf_images.amax(dim=(1, 2)).contiguous()
     lib = _kernels.load()
     err = lib.vt_warp_fuse_planes(
@@ -163,6 +198,7 @@ def warp_fuse_planes(
         int(bool(opt.use_truncation)),
         float(truncation_threshold(opt)),
         float(opt.voxel_update_weight),
+        int(ortho_rows is not None),
         _kernels.stream_ptr(sdf.device),
     )
     _kernels.check(err, "warp_fused kernel launch")

@@ -1,13 +1,21 @@
-"""End-to-end pipeline + CLI: the synthetic turntable (BASELINE config 4).
+"""End-to-end pipelines + CLI (``vacancy_tpu/pipeline.py``; the
+reference's examples.cc).
 
     python -m vacancy_tpu_torch.pipeline turntable --n 512 --views 36 --out DIR
+    python -m vacancy_tpu_torch.pipeline sweep --n 1024 --views 100 --out DIR
+    python -m vacancy_tpu_torch.pipeline bunny --out DIR   # needs VACANCY_DATA
 
-renders silhouettes of a sphere-union blob from ``--views`` orbiting
-cameras, turns them into truncated 2D SDFs, fuses them into an n^3 grid
-with weighted-average TSDF updates through the fused warp kernel, extracts
-the iso-surface through the fused marching-cubes kernel, and writes a
-binary PLY. It prints one JSON line. The device defaults to ``cuda``;
-``--device cpu`` runs the kernels' plain versions instead.
+``turntable`` (BASELINE config 4) renders silhouettes of a sphere-union
+blob from ``--views`` orbiting cameras, turns them into truncated 2D SDFs,
+fuses them into an n^3 grid with weighted-average TSDF updates through the
+fused warp kernel, extracts the iso-surface through the fused
+marching-cubes kernel, and writes a binary PLY. ``sweep`` (BASELINE config
+5) is the same scene at 1024^3 x 100 views on one card: the carve runs
+z-chunked and in place (``carve_views_warp_blocked``), and cold and warm
+times of carve and extract are reported. ``bunny`` is the examples.cc
+sequence on the six views under ``VACANCY_DATA``, with ``--checkpoint``
+and ``--resume``. Each prints one JSON line. The device defaults to
+``cuda``; ``--device cpu`` runs the kernels' plain versions instead.
 """
 
 from __future__ import annotations
@@ -18,9 +26,12 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .camera import stack_cameras
+from .camera import PinholeCamera, stack_cameras
+from .carver import VoxelCarver
+from .checkpoint import load_state, save_state
 from .config import (
     SdfInterpolation,
     VoxelCarverOption,
@@ -28,11 +39,35 @@ from .config import (
     VoxelUpdateOption,
 )
 from .grid import GridSpec, VoxelGridState
-from .ops.fusion_warp import carve_views_warp
+from .io import load_mask, load_tum_poses, write_png
+from .mesh import Mesh
+from .metrics import bbox_diagonal, chamfer_distance, hausdorff_distance
+from .ops.fusion_warp import carve_views_warp, carve_views_warp_blocked
 from .ops.marching_cubes import extract_mesh
-from .ops.sdf2d import make_signed_distance_field
+from .ops.sdf2d import make_signed_distance_field, signed_distance_to_color
 from .synthetic import blob_spheres, render_silhouettes, turntable_cameras
-from .utils import LOGI
+from .utils import LOGI, Timer, zfill
+from .utils.timing import trace as profiler_trace
+
+# exact mesh bounding box + 20mm pad (examples.cc:87-98)
+BUNNY_BB_MIN = (-270.0, -364.586151, -149.982697)
+BUNNY_BB_MAX = (270.0, 170.542343, 277.329224)
+BUNNY_INTRINSICS = dict(
+    width=320,
+    height=240,
+    principal_point=np.array([159.3, 127.65], np.float32),
+    focal_length=np.array([258.65, 258.25], np.float32),
+)
+
+
+def data_dir() -> str:
+    """The directory of the bunny sequence (``tumpose.txt``,
+    ``mask_0000N.png``, ``GT.ply``): the ``VACANCY_DATA`` variable."""
+    d = os.environ.get("VACANCY_DATA")
+    if not d:
+        raise RuntimeError("the bunny pipelines read their six views from "
+                           "the directory named by VACANCY_DATA")
+    return d
 
 
 def turntable_grid(n: int) -> GridSpec:
@@ -134,8 +169,7 @@ def run_turntable(
     out = {
         "grid": list(grid.voxel_num),
         "views": n_views,
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
+        "device": _device_name(device),
         "carve_s": carve_s,
         "fusions_per_s": grid.num_voxels * n_views / carve_s,
         "extract_s": extract_s,
@@ -149,19 +183,310 @@ def run_turntable(
     return out
 
 
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def run_sweep(
+    n: int = 1024,
+    n_views: int = 100,
+    sharded: bool = False,
+    extract: bool = True,
+    out_dir: Optional[str] = None,
+    device="cuda",
+) -> dict:
+    """BASELINE config 5 as one command on one device: N^3 (default
+    1024^3) TSDF sweep over 100+ synthetic turntable views, z-chunked and
+    in place (``carve_views_warp_blocked``; the per-view fields of the
+    whole grid would exceed the card's memory), then extraction through
+    the fused marching-cubes kernel.
+
+    cold = the first call, which builds the kernels; warm = steady state
+    (the headline fusions/s). Both are recorded, so the result shows the
+    first-run cost and the throughput a long sweep sees. Every timing ends
+    in a device synchronize. With ``out_dir`` the mesh is written to
+    ``out_dir/sweep_{n}.ply`` (binary)."""
+    if sharded:
+        raise NotImplementedError(
+            "run_sweep(sharded=True) waits for the port of parallel/ "
+            "(ROADMAP Queue 1: parallel/ -> torch.distributed)")
+    device = torch.device(device)
+    grid, opt, cams, sdf_images = turntable_inputs(n, n_views, True, device)
+    linear = opt.sdf_interp == SdfInterpolation.BILINEAR
+
+    def do_carve():
+        state = carve_views_warp_blocked(
+            VoxelGridState.create(grid, device), grid, cams.w2c,
+            cams.principal_point, cams.focal_length, sdf_images,
+            opt=opt, linear=linear,
+        )
+        _sync(device)
+        return state
+
+    t0 = time.perf_counter()
+    state = do_carve()
+    carve_cold_s = time.perf_counter() - t0
+    # free the cold state before the warm rerun: two 1024^3 states are
+    # 17 GB that nothing needs
+    del state
+    t0 = time.perf_counter()
+    state = do_carve()
+    carve_s = time.perf_counter() - t0
+
+    out = {
+        "config": "baseline-5-sweep",
+        "grid": list(grid.voxel_num),
+        "views": n_views,
+        "sharded": False,
+        "device": _device_name(device),
+        "carve_cold_s": carve_cold_s,
+        "carve_s": carve_s,
+        "fusions_per_s": grid.num_voxels * n_views / carve_s,
+    }
+    if extract:
+        t0 = time.perf_counter()
+        mesh = extract_mesh(state, grid)
+        _sync(device)
+        extract_cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh = extract_mesh(state, grid)
+        _sync(device)
+        out.update(
+            extract_cold_s=extract_cold_s,
+            extract_s=time.perf_counter() - t0,
+            mc_vertices=mesh.num_vertices,
+            mc_faces=mesh.num_faces,
+        )
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            mesh.write_ply(os.path.join(out_dir, f"sweep_{n}.ply"),
+                           binary=True)
+    return out
+
+
+def load_bunny(device="cuda"):
+    """(six cameras on ``device``, uint8 masks [6, 240, 320]) of the
+    bunny sequence under ``data_dir()``."""
+    d = data_dir()
+    poses = load_tum_poses(os.path.join(d, "tumpose.txt"))
+    masks = np.stack(
+        [load_mask(os.path.join(d, f"mask_{i:05d}.png")) for i in range(6)]
+    )
+    cams = [
+        PinholeCamera.create(c2w=p, device=device, **BUNNY_INTRINSICS)
+        for p in poses
+    ]
+    return cams, masks
+
+
+def bunny_option(
+    resolution: float = 10.0,
+    tsdf: bool = False,
+    truncation_band: float = 0.1,
+    interp: str = "bilinear",
+    sdf_scale: Optional[float] = None,
+) -> VoxelCarverOption:
+    """sdf_scale enables metric TSDF fusion (see
+    config.VoxelCarverOption): pass the world-units-per-pixel factor
+    (roughly camera_distance / fx) and a truncation_band in world units
+    (e.g. 3 * resolution)."""
+    return VoxelCarverOption(
+        bb_min=BUNNY_BB_MIN,
+        bb_max=BUNNY_BB_MAX,
+        resolution=resolution,
+        sdf_scale=sdf_scale,
+        update_option=VoxelUpdateOption(
+            voxel_update=(
+                VoxelUpdate.WEIGHTED_AVERAGE if tsdf else VoxelUpdate.MAX
+            ),
+            sdf_interp=(
+                SdfInterpolation.NN
+                if interp == "nn"
+                else SdfInterpolation.BILINEAR
+            ),
+            use_truncation=tsdf,
+            truncation_band=truncation_band,
+        ),
+    )
+
+
+def run_bunny(
+    out_dir: Optional[str] = None,
+    resolution: float = 10.0,
+    tsdf: bool = False,
+    write_artifacts: bool = True,
+    chamfer_gt: bool = True,
+    checkpoint: Optional[str] = None,
+    resume: bool = False,
+    sdf_scale: Optional[float] = None,
+    engine: str = "exact",
+    device="cuda",
+) -> dict:
+    """The examples.cc bunny pipeline (examples.cc:75-152), view by view
+    through ``VoxelCarver.carve(engine=...)``: "exact" (the reference's
+    sampling) or "warp" (the warp engine). With ``checkpoint`` the state
+    is saved after every view; ``resume`` picks up after the last one."""
+    device = torch.device(device)
+    cams, masks = load_bunny(device)
+    option = bunny_option(
+        resolution=resolution,
+        tsdf=tsdf,
+        truncation_band=(3 * resolution if sdf_scale else 0.1),
+        sdf_scale=sdf_scale,
+    )
+    carver = VoxelCarver(option, device)
+    start_view = 0
+    if not carver.init():
+        raise ValueError("invalid bunny option")
+    if resume and checkpoint and os.path.exists(
+            checkpoint if checkpoint.endswith(".npz")
+            else checkpoint + ".npz"):
+        state, grid, start_view, _ = load_state(checkpoint, device=device)
+        carver.restore(state, grid)
+        LOGI("resumed from %s at view %d", checkpoint, start_view)
+    LOGI("grid: %s (%d voxels)", carver.grid.voxel_num,
+         carver.grid.num_voxels)
+
+    results = {"grid": list(carver.grid.voxel_num), "views": []}
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+
+    timer = Timer()
+    for i in range(start_view, 6):
+        timer.start()
+        sdf_img = carver.carve(cams[i], silhouette=masks[i], engine=engine)
+        carve_ms = timer.end()
+        num = zfill(i)
+        view_rec = {"view": i, "carve_ms": carve_ms}
+        if write_artifacts and out_dir:
+            write_png(
+                os.path.join(out_dir, f"sdf_{num}.png"),
+                signed_distance_to_color(sdf_img, -1.0, 1.0),
+            )
+            timer.start()
+            vm = carver.extract_voxel()
+            vm.write_ply(os.path.join(out_dir, f"voxel_{num}.ply"))
+            view_rec["voxel_ms"] = timer.end()
+            timer.start()
+            mc = carver.extract_iso_surface(0.0)
+            mc.write_ply(os.path.join(out_dir, f"surface_{num}.ply"))
+            view_rec["mc_ms"] = timer.end()
+            mc_ni = carver.extract_iso_surface(0.0, linear_interp=False)
+            mc_ni.write_ply(
+                os.path.join(out_dir, f"surface_nointerp_{num}.ply")
+            )
+        if checkpoint:
+            save_state(checkpoint, carver.state, carver.grid, next_view=i + 1)
+        results["views"].append(view_rec)
+        LOGI("view %d carved in %.1f ms", i, carve_ms)
+
+    mesh = carver.extract_iso_surface(0.0)
+    results["mc_vertices"] = mesh.num_vertices
+    results["mc_faces"] = mesh.num_faces
+    if out_dir:
+        mesh.write_ply(os.path.join(out_dir, "final_surface.ply"))
+    if chamfer_gt:
+        gt = Mesh.load_ply(os.path.join(data_dir(), "GT.ply"))
+        ch, a, b = chamfer_distance(mesh, gt)
+        diag = bbox_diagonal(gt)
+        results["chamfer"] = ch
+        results["chamfer_over_diag"] = ch / diag
+        results["hausdorff"] = hausdorff_distance(mesh, gt)
+        LOGI("chamfer=%.3f (%.3f/%.3f) diag=%.1f ratio=%.5f",
+             ch, a, b, diag, ch / diag)
+    return results
+
+
+def run_bunny_batched(resolution: float = 10.0, tsdf: bool = False,
+                      device="cuda") -> dict:
+    """All six views fused in one ``carve_batch`` call."""
+    device = torch.device(device)
+    cams, masks = load_bunny(device)
+    carver = VoxelCarver(bunny_option(resolution=resolution, tsdf=tsdf),
+                         device)
+    if not carver.init():
+        raise ValueError("invalid bunny option")
+    t0 = time.perf_counter()
+    carver.carve_batch(cams, masks)
+    _sync(device)
+    carve_s = time.perf_counter() - t0
+    mesh = carver.extract_iso_surface(0.0)
+    gt = Mesh.load_ply(os.path.join(data_dir(), "GT.ply"))
+    ch, _, _ = chamfer_distance(mesh, gt)
+    return {
+        "grid": list(carver.grid.voxel_num),
+        "carve_s": carve_s,
+        "fusions_per_s": carver.grid.num_voxels * 6 / carve_s,
+        "mc_vertices": mesh.num_vertices,
+        "chamfer_over_diag": ch / bbox_diagonal(gt),
+    }
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(prog="vacancy_tpu_torch.pipeline")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    b = sub.add_parser("bunny", help="bundled 6-view bunny (examples.cc); "
+                       "reads the directory named by VACANCY_DATA")
+    b.add_argument("--out", default=None)
+    b.add_argument("--resolution", type=float, default=10.0)
+    b.add_argument("--grid-n", type=int, default=None,
+                   help="target ~N^3 grid (overrides --resolution)")
+    b.add_argument("--tsdf", action="store_true",
+                   help="weighted-average TSDF + truncation")
+    b.add_argument("--sdf-scale", type=float, default=None,
+                   help="metric TSDF: world units per pixel at the object "
+                   "depth (~camera_distance/fx; band becomes 3*resolution)")
+    b.add_argument("--no-artifacts", action="store_true")
+    b.add_argument("--checkpoint", default=None)
+    b.add_argument("--resume", action="store_true")
+    b.add_argument("--engine", choices=("exact", "warp"), default="exact",
+                   help="per-view fusion engine: exact = the reference's "
+                   "sampling; warp = the warp engine")
+
     t = sub.add_parser("turntable", help="synthetic turntable at N^3")
     t.add_argument("--n", type=int, default=256)
     t.add_argument("--views", type=int, default=36)
     t.add_argument("--out", default=None)
-    t.add_argument("--device", default="cuda",
-                   help="torch device; cpu runs the kernels' plain versions")
+
+    s = sub.add_parser(
+        "sweep", help="BASELINE config 5: 1024^3, 100+ views, one card")
+    s.add_argument("--n", type=int, default=1024)
+    s.add_argument("--views", type=int, default=100)
+    s.add_argument("--sharded", action="store_true",
+                   help="not ported yet: waits for parallel/")
+    s.add_argument("--no-extract", action="store_true")
+    s.add_argument("--out", default=None)
+    for sp in (b, t, s):
+        sp.add_argument("--device", default="cuda", help="torch device; "
+                        "cpu runs the kernels' plain versions")
+        sp.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler trace to DIR/trace.json")
+
     args = p.parse_args(argv)
-    out = run_turntable(n=args.n, n_views=args.views, out_dir=args.out,
-                        device=args.device)
-    print(json.dumps(out))
+    with profiler_trace(args.profile):
+        if args.cmd == "bunny":
+            res = args.resolution
+            if args.grid_n:
+                res = max(hi - lo for lo, hi in
+                          zip(BUNNY_BB_MIN, BUNNY_BB_MAX)) / args.grid_n
+            out = run_bunny(
+                out_dir=args.out, resolution=res, tsdf=args.tsdf,
+                write_artifacts=not args.no_artifacts,
+                checkpoint=args.checkpoint, resume=args.resume,
+                sdf_scale=args.sdf_scale, engine=args.engine,
+                device=args.device,
+            )
+        elif args.cmd == "turntable":
+            out = run_turntable(n=args.n, n_views=args.views,
+                                out_dir=args.out, device=args.device)
+        else:
+            out = run_sweep(n=args.n, n_views=args.views,
+                            sharded=args.sharded,
+                            extract=not args.no_extract, out_dir=args.out,
+                            device=args.device)
+    print(json.dumps(out, default=str))
     return out
 
 

@@ -3,6 +3,7 @@ capture resolution, goes.
 
     python -m vacancy_tpu_torch.profile_turntable --n 512 --views 36
     python -m vacancy_tpu_torch.profile_turntable --n 512 --views 36 --facade
+    python -m vacancy_tpu_torch.profile_turntable --n 1024 --views 100 --sweep
 
 The first runs ``pipeline.run_turntable`` once to warm up, then once more
 under ``torch.profiler``; the profiled run holds the warm-up carve, the
@@ -10,7 +11,9 @@ timed carve and the extract. With ``--facade`` it builds a
 ``VoxelCarver`` on the same n^3 grid (``pipeline.facade_inputs``: WAVG,
 band 0.05, bilinear), runs ``carve_batch(engine="warp")`` of ``--views``
 silhouettes of 3840 x 2160 (4K UHD) once to warm up, resets the grid,
-and profiles one more ``carve_batch`` ending in a synchronize. Either
+and profiles one more ``carve_batch`` ending in a synchronize. With
+``--sweep`` it runs ``pipeline.run_sweep`` once to warm up and once more
+under the profiler (a cold and a warm z-chunked carve, two extracts). Each
 prints one JSON line on one CUDA device: the profiled run's wall
 seconds, the device time summed over every kernel and copy, the device's
 idle share of the wall time, and the device time of each kernel or copy,
@@ -28,7 +31,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .carver import VoxelCarver
-from .pipeline import facade_inputs, run_turntable
+from .pipeline import facade_inputs, run_sweep, run_turntable
 
 
 def _device_us(ev) -> float:
@@ -77,6 +80,16 @@ def profile_turntable(n: int, n_views: int, device="cuda") -> dict:
             **_summary(wall, spans)}
 
 
+def profile_sweep(n: int, n_views: int, device="cuda") -> dict:
+    device = _cuda(device)
+    run_sweep(n=n, n_views=n_views, device=device)
+    res, wall, spans = _profiled(
+        lambda: run_sweep(n=n, n_views=n_views, device=device), device)
+    return {"grid": res["grid"], "views": n_views, "device": res["device"],
+            "carve_s": res["carve_s"], "extract_s": res["extract_s"],
+            **_summary(wall, spans)}
+
+
 def profile_facade(n: int, n_views: int, width: int, height: int,
                    device="cuda") -> dict:
     device = _cuda(device)
@@ -100,9 +113,15 @@ def main(argv=None) -> dict:
     p.add_argument("--views", type=int, default=36)
     p.add_argument("--facade", action="store_true",
                    help="profile one VoxelCarver.carve_batch(engine='warp')")
+    p.add_argument("--sweep", action="store_true",
+                   help="profile pipeline.run_sweep (the z-chunked carve)")
     args = p.parse_args(argv)
+    if args.facade and args.sweep:
+        p.error("--facade and --sweep are two profiles: pass one")
     if args.facade:
         out = profile_facade(args.n, args.views, 3840, 2160)
+    elif args.sweep:
+        out = profile_sweep(args.n, args.views)
     else:
         out = profile_turntable(args.n, args.views)
     print(json.dumps(out))
