@@ -68,14 +68,49 @@ Phases, one line each; any failure raises and the exit code is non-zero:
  15. extract_mesh(engine="xla") == engine="fused" byte for byte on the 256^3
      sphere (dense and z-slab routines), both timed; a checkpoint of that
      state saved and loaded back equal.
+ 16. the MC kernel with emission windows and global-id bases vs its plain
+     version, byte-identical tile counts, streams and plane counts: the
+     eight halo-extended blocks of a (2, 2, 2) split of a random 256^3 state
+     with invalid voxels (linear and no-interp), and one block each of a
+     (4,) and a (2, 2) split of the 512^3 turntable state; halo planes, rows
+     and lanes emit nothing, and the blocks' global ids, sorted, are the
+     dense run's.
+ 17. the sharded sweep at full size, one process, four blocks on the card:
+     `pipeline sweep --n 1024 --views 100 --mesh-shape 4` in process
+     (counters reset just before: the fused warp kernel once per block,
+     z-chunk and carve, MC once per block and extract, interp_rows 0), then
+     `--mesh-shape 2,2` (z and y blocks: the sorted assembly). Every block of
+     each sharded state == the slice of the unsharded state (update_num
+     exact, sdf bitwise); each mesh and PLY == phase 12's byte for byte;
+     engine="xla" on the (4,) mesh gives the same mesh; the fused warp kernel
+     == plain on one chunk of a [512, 512, 1024] block; the windowed MC
+     kernel == plain on the first 64 planes (halo plane included) of the
+     (4,) block [258, 1024, 1024] and of the (2, 2) block [514, 514, 1024]
+     with its row window and bases; the MC passes timed on the (4,) block;
+     peak memory and the halo exchange's bytes and milliseconds are printed.
+ 18. a (2, 2, 2) mesh at 512^3 x 36 through `pipeline turntable
+     --mesh-shape 2,2,2`: mesh == phase 5's; the fused warp kernel == plain
+     on one [256, 256, 256] block; the windowed MC kernel == plain on one
+     whole halo-extended [258, 258, 258] block; a sharded checkpoint
+     (force_sharded=True) of the 256^3 sphere saved and loaded back equal.
+ 19. two processes on the card: this script starts two ranks of itself
+     (`--worker`), both on cuda:0, with a (2, 2) mesh spanning them at
+     512^3 x 36: initialize_distributed, carve_views_warp_sharded (blocks ==
+     the dense carve), a per-process checkpoint round trip,
+     extract_mesh_sharded(engine="fused", piece_dir=...) and engine="xla" on
+     a (2,) mesh; rank 0's meshes == phase 5's byte for byte, rank 1 gets
+     None; the line names the transport. A worker that fails, or is not
+     done after 300 s, fails the run.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. No JAX is imported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -431,7 +466,7 @@ def phase_main_path(device):
            f"{float((ku > 0).float().mean()):.3f} of voxels); MC kernel == "
            f"plain (counts and 4 streams byte-identical, {n_vert} vertices "
            f"as in the main path)")
-    return launches, warp_err, mc_err
+    return launches, warp_err, mc_err, mesh
 
 
 # kernel C's shapes on the UHD facade path, for 64 of the 512 z-planes:
@@ -1022,6 +1057,7 @@ def phase_sweep(device, n=1024, n_views=100):
         t0 = time.perf_counter()
         back = Mesh.load_ply(os.path.join(out_dir, f"sweep_{n}.ply"))
         load_s = time.perf_counter() - t0
+        ply_sha = _sha256(os.path.join(out_dir, f"sweep_{n}.ply"))
     chunks = n // fusion_warp._snap_chunk_nz(n, 128) if n > 128 else 1
     _require(launches["warp_fused"] == 2 * chunks
              and launches["mc_fused"] == 2 and launches["mc_scan"] == 2
@@ -1160,24 +1196,18 @@ def phase_sweep(device, n=1024, n_views=100):
     scan_plain = _cuda_ms(lambda: mc_fused.mc_scan_plain(counts, tpp), 5)
     scan_lib = _cuda_ms(
         lambda: torch.cumsum(counts, dim=0, dtype=torch.int32), 5)
-    count_ms = _cuda_ms(lambda: mc_fused.mc_tile_counts(
-        blocked.sdf, blocked.update_num, *centers), 3)
-    whole_ms = _cuda_ms(lambda: mc_fused.marching_cubes_fused(
-        blocked.sdf, blocked.update_num, *centers), 3)
     scan_bound = _bound(_nbytes(counts, *k), 4 * counts.numel())
-    mc_bound = _bound(_nbytes(blocked.sdf, blocked.update_num,
-                              *st.as_tuple()), 30 * blocked.sdf.numel())
-    _phase("sweep", f"{n}^3 MC passes: count {count_ms:.3f} ms, scan "
-           f"{scan_ms:.3f} ms over {counts.shape[0]} tiles (plain "
-           f"{scan_plain:.3f} ms, one torch.cumsum {scan_lib:.3f} ms, bound "
-           f"{scan_bound[0]:.4f} ms by {scan_bound[1]}), all three passes "
-           f"{whole_ms:.3f} ms (bound {mc_bound[0]:.3f} ms by "
-           f"{mc_bound[1]})")
+    _phase("sweep", f"{n}^3 scan pass over {counts.shape[0]} tiles: "
+           f"{scan_ms:.3f} ms (plain {scan_plain:.3f} ms, one torch.cumsum "
+           f"{scan_lib:.3f} ms, bound {scan_bound[0]:.4f} ms by "
+           f"{scan_bound[1]})")
+    _phase("sweep", f"{n}^3 MC passes: " + _mc_pass_times(
+        blocked.sdf, blocked.update_num, centers, {}))
     scan = {"ms": scan_ms, "plain_ms": scan_plain, "library_ms": scan_lib,
             "bound": scan_bound, "err": scan_err}
     del blocked, st, counts
     torch.cuda.empty_cache()
-    return launches, a_err, b_err, scan, (native_s, numpy_s)
+    return launches, a_err, b_err, scan, (back, ply_sha, peak)
 
 
 def phase_blocked_two_pass(device, n=1024, n_views=2):
@@ -1334,7 +1364,708 @@ def phase_xla_checkpoint(device):
            f"({size / 2**20:.1f} MiB), load_state {load_s:.3f} s, equal")
 
 
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _mc_pass_times(sdf, un, centers, window: dict, iters: int = 3) -> str:
+    """The MC kernel's count, scan and emit passes timed apart and
+    together on one state, each beside its bound: the bytes the pass must
+    move (its inputs read once, its outputs written once) over the card's
+    memory rate, or about 30 float32 operations per voxel (8 compares, the
+    case, the flags) for the passes that walk the voxels."""
+    from vacancy_tpu_torch.ops import mc_fused
+
+    a = (sdf, un, *centers)
+    tpp = mc_fused.tiles_per_plane(*sdf.shape[1:])
+    counts = mc_fused.mc_tile_counts(*a, **window)
+    offsets, totals, plane_counts = mc_fused.mc_scan(counts, tpp)
+    tot = totals.tolist()
+    outs = mc_fused.mc_emit(*a, offsets, tot, **window)
+    ops = 30 * sdf.numel()
+    passes = (
+        ("count", lambda: mc_fused.mc_tile_counts(*a, **window),
+         _bound(_nbytes(sdf, un, counts), ops)),
+        ("scan", lambda: mc_fused.mc_scan(counts, tpp),
+         _bound(_nbytes(counts, offsets, totals, plane_counts),
+                4 * counts.numel())),
+        ("emit", lambda: mc_fused.mc_emit(*a, offsets, tot, **window),
+         _bound(_nbytes(sdf, un, offsets, *outs), ops)),
+        ("all three with the host read",
+         lambda: mc_fused.marching_cubes_fused(*a, **window),
+         _bound(_nbytes(sdf, un, *outs, plane_counts), ops)),
+    )
+    return ", ".join(
+        f"{name} {_cuda_ms(fn, iters):.3f} ms (bound {b[0]:.4f} ms by {b[1]})"
+        for name, fn, b in passes) + f"; {sum(tot)} stream elements"
+
+
+def _same_mesh(a, b) -> bool:
+    import numpy as np
+
+    return (a is not None and b is not None
+            and a.vertices.shape == b.vertices.shape
+            and np.array_equal(a.vertices.view(np.int32),
+                               b.vertices.view(np.int32))
+            and np.array_equal(a.faces, b.faces))
+
+
+def _require_blocks_equal(sh, dense, what: str) -> None:
+    """Every local block of a sharded state == the dense state's slice:
+    update_num exact, sdf bitwise."""
+    import torch
+
+    for b, st in sh.blocks.items():
+        sl = sh.sharding.slices(b, sh.shape)
+        _require(torch.equal(st.update_num, dense.update_num[sl]),
+                 f"{what}: block {b} update_num != the unsharded slice")
+        _require(torch.equal(_bits(st.sdf), _bits(dense.sdf[sl])),
+                 f"{what}: block {b} sdf bits != the unsharded slice")
+
+
+def _extended_blocks(state, grid, mesh):
+    """(sharded state, halos) of a dense state cut over ``mesh``."""
+    from vacancy_tpu_torch.grid import ShardedGridState
+    from vacancy_tpu_torch.parallel import grid_sharding, halo_exchange
+
+    sh = ShardedGridState.from_dense(state, grid_sharding(mesh))
+    return sh, halo_exchange(sh)
+
+
+def _windowed_block(sh, halos, grid, block):
+    """One halo-extended block as the sharded extraction hands it to the MC
+    kernel: (sdf, update_num, cx, cy, cz) and the window keywords."""
+    from vacancy_tpu_torch.parallel import sharded
+
+    sdf, un = sharded._extended_block(sh, halos, block)
+    centers = sharded._extended_centers(grid, sh, block, sdf.device)
+    return (sdf, un, *centers), sharded.block_window(sh.sharding, sh.shape,
+                                                     block)
+
+
+def _require_window_equals_plain(args, window, linear, what: str):
+    """Tile counts, streams and plane counts of the windowed kernel ==
+    its plain version's, byte for byte; returns (kernel streams, largest
+    |difference| of the positions)."""
+    import torch
+
+    from vacancy_tpu_torch.ops import mc_fused
+
+    own = {k: window[k] for k in ("own_k", "own_j", "own_i")}
+    counts = mc_fused.mc_tile_counts(*args, linear_interp=linear, **window)
+    _require(torch.equal(counts, mc_fused.mc_tile_counts_plain(
+        *args[:2], **own)), f"{what}: windowed tile counts != plain")
+    k = mc_fused.marching_cubes_fused(*args, linear_interp=linear, **window)
+    p = mc_fused.mc_streams_plain(*args, linear_interp=linear, **window)
+    err = _require_same_streams(k, p, what)
+    return k, err
+
+
+SLAB_PLANES = 64
+
+
+def _require_slab_equals_plain(args, window, what: str):
+    """The windowed kernel == plain on the first ``SLAB_PLANES`` planes of a
+    halo-extended block of the sweep, halo plane 0 included, with the
+    block's row and lane windows and bases kept (the plain version's
+    temporaries do not fit more planes at 1024^2); returns (largest
+    |difference| of the positions, cubes emitted)."""
+    n = min(SLAB_PLANES, args[0].shape[0])
+    _require(window["own_k"] is not None and window["own_k"][0] == 1,
+             f"{what}: plane 0 of the block is no halo")
+    slab = tuple(t[:n].contiguous() for t in args[:2]) + (
+        args[2], args[3], args[4][:n].contiguous())
+    k, err = _require_window_equals_plain(
+        slab, dict(window, own_k=(1, n)), True, what)
+    cubes = int(k.c_lin.numel())
+    _require(cubes > 0, f"{what}: the slab holds no surface")
+    return err, cubes
+
+
+def _require_owned_only(k, window, sh, block, what: str) -> None:
+    """Halo planes count nothing, and every emitted id lies inside the
+    block's own range of the global grid."""
+    import torch
+
+    nz = k.plane_counts.shape[0]
+    lo, hi = window["own_k"] or (0, nz)
+    _require(int(k.plane_counts[:lo].sum()) == 0
+             and int(k.plane_counts[hi:].sum()) == 0,
+             f"{what}: a halo plane emitted")
+    _, ny, nx = sh.shape
+    sz, sy, sx = sh.sharding.slices(block, sh.shape)
+    for lin in (k.vx_lin, k.vy_lin, k.vz_lin, k.c_lin):
+        lin = lin.long()
+        kk, jj, ii = lin // (ny * nx), (lin // nx) % ny, lin % nx
+        inside = ((kk >= sz.start) & (kk < sz.stop) & (jj >= sy.start)
+                  & (jj < sy.stop) & (ii >= sx.start) & (ii < sx.stop))
+        _require(bool(inside.all()), f"{what}: a halo voxel emitted")
+
+
+def phase_mc_windows(device, n_random=256, n_turntable=512, n_views=36):
+    """Kernel B with emission windows and global-id bases against its plain
+    version on halo-extended blocks, and the blocks' ids against the dense
+    run's."""
+    import torch
+
+    from vacancy_tpu_torch import pipeline
+    from vacancy_tpu_torch.config import SdfInterpolation
+    from vacancy_tpu_torch.grid import VoxelGridState
+    from vacancy_tpu_torch.ops import mc_fused, warp_fused
+    from vacancy_tpu_torch.parallel import make_device_mesh
+
+    max_err = 0.0
+    grid, st = _random_state((n_random,) * 3, device, seed=23)
+    mesh = make_device_mesh(shape=(2, 2, 2), devices=[device] * 8)
+    sh, halos = _extended_blocks(st, grid, mesh)
+    centers = [grid.axis_centers_t(a, device) for a in range(3)]
+    for linear in (True, False):
+        dense = mc_fused.marching_cubes_fused(st.sdf, st.update_num, *centers,
+                                              linear_interp=linear)
+        parts = []
+        for b in sh.sharding.blocks():
+            args, window = _windowed_block(sh, halos, grid, b)
+            what = f"mc windows {n_random}^3 (2,2,2) block {b} linear={linear}"
+            k, err = _require_window_equals_plain(args, window, linear, what)
+            _require_owned_only(k, window, sh, b, what)
+            max_err = max(max_err, err)
+            parts.append(k)
+        # the blocks' streams, stably sorted by global id, are the dense
+        # run's: ids, cases and positions
+        for s in range(4):
+            lin = torch.cat([p.as_tuple()[2 * s + 1] for p in parts])
+            val = torch.cat([p.as_tuple()[2 * s] for p in parts])
+            if s == 3:  # the cube stream is (lin, case)
+                lin, val = val, lin
+            order = torch.argsort(lin, stable=True)
+            d_val, d_lin = dense.as_tuple()[2 * s], dense.as_tuple()[2 * s + 1]
+            if s == 3:
+                d_val, d_lin = d_lin, d_val
+            _require(torch.equal(lin[order], d_lin)
+                     and torch.equal(_bits(val[order]), _bits(d_val)),
+                     f"mc windows {n_random}^3 linear={linear}: stream {s} of "
+                     f"the blocks != the dense run's")
+        _phase("mc-windows", f"{n_random}^3 random state with invalid "
+               f"voxels, linear={linear}: the 8 halo-extended blocks "
+               f"{list(args[0].shape)} "
+               f"of a (2, 2, 2) split: windowed kernel == plain (tile counts, "
+               f"4 streams, plane counts byte-identical), halos emit "
+               f"nothing, and the blocks' ids sorted == the dense run's "
+               f"({int(dense.c_lin.numel())} cubes)")
+    del st, sh, halos, dense, parts
+    torch.cuda.empty_cache()
+
+    # one block each of a (4,) and a (2, 2) split of the turntable state
+    grid, opt, cams, imgs = pipeline.turntable_inputs(
+        n_turntable, n_views, True, device)
+    centers = [grid.axis_centers_t(a, device) for a in range(3)]
+    st0 = VoxelGridState.create(grid, device)
+    st = VoxelGridState(*warp_fused.warp_fuse_planes(
+        st0.sdf, st0.update_num, *centers, cams.w2c, cams.principal_point,
+        cams.focal_length, imgs, opt,
+        opt.sdf_interp == SdfInterpolation.BILINEAR))
+    del st0
+    dense = mc_fused.marching_cubes_fused(st.sdf, st.update_num, *centers)
+    for shape, block in (((4,), (1, 0, 0)), ((2, 2), (1, 1, 0))):
+        n_blocks = 4
+        mesh = make_device_mesh(shape=shape, devices=[device] * n_blocks)
+        sh, halos = _extended_blocks(st, grid, mesh)
+        args, window = _windowed_block(sh, halos, grid, block)
+        what = f"mc windows {n_turntable}^3 turntable {shape} block {block}"
+        k, err = _require_window_equals_plain(args, window, True, what)
+        _require_owned_only(k, window, sh, block, what)
+        max_err = max(max_err, err)
+        # the dense run's cubes inside the block's range are the block's
+        _, ny, nx = sh.shape
+        sz, sy, sx = sh.sharding.slices(block, sh.shape)
+        lin = dense.c_lin.long()
+        kk, jj = lin // (ny * nx), (lin // nx) % ny
+        inside = ((kk >= sz.start) & (kk < sz.stop) & (jj >= sy.start)
+                  & (jj < sy.stop))
+        _require(torch.equal(dense.c_lin[inside], k.c_lin)
+                 and torch.equal(dense.c_case[inside], k.c_case)
+                 and int(k.c_lin.numel()) > n_turntable ** 2 // 32,
+                 f"{what}: cubes != the dense run's inside the block")
+        _phase("mc-windows", f"{n_turntable}^3 turntable state, {shape} split, block "
+               f"{block} extended to {list(args[0].shape)}: windowed kernel "
+               f"== plain byte for byte; its {int(k.c_lin.numel())} cubes "
+               f"are the dense run's inside the block")
+        del sh, halos, args, k
+    del st, dense
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def _sharded_sweep_run(device, n, n_views, mesh_shape, ref_mesh, ref_sha):
+    """`pipeline sweep --mesh-shape ...` in process with the counters reset
+    just before; its PLY against the unsharded sweep's."""
+    import torch
+
+    from vacancy_tpu_torch import pipeline
+    from vacancy_tpu_torch.mesh import Mesh
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    arg = ",".join(str(m) for m in mesh_shape)
+    with tempfile.TemporaryDirectory() as out_dir:
+        counters = _reset_counters()
+        t0 = time.perf_counter()
+        res = pipeline.main(["sweep", "--n", str(n), "--views", str(n_views),
+                             "--mesh-shape", arg, "--out", out_dir])
+        wall = time.perf_counter() - t0
+        launches = _read_counters(counters)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        path = os.path.join(out_dir, f"sweep_{n}.ply")
+        _require(_sha256(path) == ref_sha,
+                 f"sharded sweep {mesh_shape}: PLY bytes != the unsharded "
+                 f"sweep's")
+        _require(_same_mesh(Mesh.load_ply(path), ref_mesh),
+                 f"sharded sweep {mesh_shape}: mesh != the unsharded sweep's")
+    _require(res["sharded"] is True and res["mesh_shape"] == list(mesh_shape)
+             and res["transport"] == "device copy",
+             f"sharded sweep {mesh_shape}: report {res}")
+    return res, launches, wall, peak
+
+
+def phase_sharded_sweep(device, ref_mesh, ref_sha, ref_peak, n=1024,
+                        n_views=100):
+    """The sharded sweep at full size on one card: four z blocks, then
+    2 x 2 (z, y) blocks, each held block by block against the unsharded
+    state and byte for byte against the unsharded mesh."""
+    import torch
+
+    from vacancy_tpu_torch import pipeline
+    from vacancy_tpu_torch.config import SdfInterpolation
+    from vacancy_tpu_torch.grid import VoxelGridState
+    from vacancy_tpu_torch.ops import fusion_warp, warp_fused
+    from vacancy_tpu_torch.parallel import (
+        carve_views_warp_sharded,
+        extract_mesh_sharded,
+        grid_sharding,
+        halo_exchange,
+        make_device_mesh,
+    )
+
+    grid, opt, cams, imgs = pipeline.turntable_inputs(n, n_views, True, device)
+    linear = opt.sdf_interp == SdfInterpolation.BILINEAR
+    cam_args = (cams.w2c, cams.principal_point, cams.focal_length, imgs)
+    chunk = fusion_warp._snap_chunk_nz(n, 128) if n > 128 else n
+    launches, a_err, b_err = {}, 0.0, 0.0
+    for mesh_shape in ((4,), (2, 2)):
+        parts = mesh_shape + (1,) * (3 - len(mesh_shape))
+        lz = n // parts[0]
+        blocks = parts[0] * parts[1] * parts[2]
+        chunks = lz // min(chunk, lz) if lz > 128 else 1
+        res, got, wall, peak = _sharded_sweep_run(
+            device, n, n_views, mesh_shape, ref_mesh, ref_sha)
+        _require(got["warp_fused"] == 2 * blocks * chunks
+                 and got["mc_fused"] == 2 * blocks
+                 and got["mc_scan"] == 2 * blocks
+                 and got["interp_rows"] == 0,
+                 f"sharded sweep {mesh_shape} launches {got}: need the fused "
+                 f"warp kernel once per block, chunk and carve "
+                 f"({2 * blocks * chunks}), MC once per block and extract "
+                 f"({2 * blocks})")
+        launches[mesh_shape] = got
+        halo = dict(halo_exchange.last)
+        _phase("sharded", f"run_sweep {n}^3 x {n_views} --mesh-shape "
+               f"{mesh_shape} (blocks {[n // p for p in parts]}, all on one "
+               f"card): carve cold {res['carve_cold_s']:.4f} s, warm "
+               f"{res['carve_s']:.4f} s ({res['fusions_per_s'] / 1e9:.3f} "
+               f"Gfusions/s), extract cold {res['extract_cold_s']:.4f} s, "
+               f"warm {res['extract_s']:.4f} s, wall {wall:.3f} s, launches "
+               f"{got}, peak mem {peak:.2f} GiB (the unsharded sweep "
+               f"{ref_peak:.2f} GiB); halo exchange "
+               f"{halo['bytes']} bytes in {halo['ms']:.3f} ms by "
+               f"{halo['transport']}; PLY bytes and mesh == the unsharded "
+               f"sweep's")
+
+        # block by block against the unsharded state, then the meshes
+        mesh = make_device_mesh(shape=mesh_shape, devices=[device] * blocks)
+        sh = carve_views_warp_sharded(
+            VoxelGridState.create(grid, sharding=grid_sharding(mesh)), grid,
+            *cam_args, opt=opt, linear=linear, mesh=mesh)
+        dense = fusion_warp.carve_views_warp_blocked(
+            VoxelGridState.create(grid, device), grid, *cam_args, opt=opt,
+            linear=linear)
+        torch.cuda.synchronize()
+        _require_blocks_equal(sh, dense, f"sharded sweep {mesh_shape}")
+        del dense
+        torch.cuda.empty_cache()
+        _require(_same_mesh(extract_mesh_sharded(sh, grid, mesh,
+                                                 engine="fused"), ref_mesh),
+                 f"sharded sweep {mesh_shape}: fused mesh != unsharded")
+        line = (f"{mesh_shape}: every block == the unsharded state's slice "
+                f"(update_num exact, sdf bitwise); extract_mesh_sharded "
+                f"(fused) == the unsharded mesh")
+        if mesh_shape == (4,):
+            t0 = time.perf_counter()
+            xla = extract_mesh_sharded(sh, grid, mesh, engine="xla")
+            xla_s = time.perf_counter() - t0
+            _require(_same_mesh(xla, ref_mesh),
+                     "sharded sweep (4,): engine='xla' mesh != unsharded")
+            del xla
+            line += f"; engine='xla' ({xla_s:.3f} s) == the same mesh"
+            # the MC passes on the (4,) block with both halos
+            halos = halo_exchange(sh)
+            args, window = _windowed_block(sh, halos, grid, (1, 0, 0))
+            _phase("sharded", f"MC passes on the (4,) block "
+                   f"{list(args[0].shape)} with windows: "
+                   + _mc_pass_times(args[0], args[1], args[2:], window))
+            err, cubes = _require_slab_equals_plain(
+                args, window, "sharded sweep (4,) block (1, 0, 0) slab")
+            b_err = max(b_err, err)
+            line += (f"; windowed MC kernel == plain on the first "
+                     f"{SLAB_PLANES} planes of block (1, 0, 0) ({cubes} "
+                     f"cubes)")
+            del halos, args
+        else:
+            # the k- and j-windowed MC kernel on block (1, 1, 0), whose
+            # plane 0 and row 0 are halos (yb = 511 in a 1024-row grid)
+            b = (1, 1, 0)
+            halos = halo_exchange(sh)
+            args, window = _windowed_block(sh, halos, grid, b)
+            err, cubes = _require_slab_equals_plain(
+                args, window, f"sharded sweep (2, 2) block {b} slab")
+            b_err = max(b_err, err)
+            line += (f"; windowed MC kernel == plain on the first "
+                     f"{SLAB_PLANES} planes of block {b} extended to "
+                     f"{list(args[0].shape)} ({cubes} cubes)")
+            del halos, args
+            # kernel A == plain on one chunk of a [512, 512, 1024] block
+            st = sh.blocks[b]
+            sz, sy, sx = sh.sharding.slices(b, sh.shape)
+            zs = slice(min(chunk, lz) * (chunks - 1), lz)  # the last chunk
+            cz, cy, cx = (grid.axis_centers_t(a, device)[s].contiguous()
+                          for a, s in ((2, sz), (1, sy), (0, sx)))
+            a = (*_empty_planes((zs.stop - zs.start, sy.stop - sy.start,
+                                 sx.stop - sx.start), device), cx, cy,
+                 cz[zs].contiguous(),
+                 *cam_args, opt, linear)
+            ps, pu = warp_fused.warp_fuse_planes_plain(*a)
+            torch.cuda.synchronize()
+            _require(torch.equal(st.update_num[zs], pu)
+                     and torch.equal(_bits(st.sdf[zs]), _bits(ps)),
+                     "sharded sweep (2, 2): fused warp kernel != plain on a "
+                     "chunk of block (1, 1, 0)")
+            a_err = max(a_err,
+                        float((st.sdf[zs] - ps).abs().nan_to_num(0).max()))
+            ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 3)
+            bound = _warp_bound(a[0], a[1], imgs, n_views)
+            line += (f"; fused warp kernel == plain on planes [{zs.start}, "
+                     f"{zs.stop}) of block {b} ({list(a[0].shape)} x "
+                     f"{n_views} views: "
+                     f"kernel {ms:.3f} ms, bound {bound[0]:.3f} ms by "
+                     f"{bound[1]})")
+            del a, ps, pu
+        _phase("sharded", line)
+        del sh
+        torch.cuda.empty_cache()
+    return launches, a_err, b_err
+
+
+def phase_mesh_222(device, ref_mesh, n=512, n_views=36, n_sphere=256):
+    """A (2, 2, 2) mesh at 512^3 x 36 through the turntable entry point,
+    kernel A on a [256, 256, 256] block against plain, and a sharded
+    checkpoint round trip."""
+    import torch
+
+    from vacancy_tpu_torch import pipeline
+    from vacancy_tpu_torch.bench import _sphere_state
+    from vacancy_tpu_torch.checkpoint import load_state, save_state
+    from vacancy_tpu_torch.config import SdfInterpolation
+    from vacancy_tpu_torch.grid import ShardedGridState, VoxelGridState
+    from vacancy_tpu_torch.mesh import Mesh
+    from vacancy_tpu_torch.ops import warp_fused
+    from vacancy_tpu_torch.parallel import (
+        carve_views_warp_sharded,
+        grid_sharding,
+        halo_exchange,
+        make_device_mesh,
+    )
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        counters = _reset_counters()
+        res = pipeline.main(
+            ["turntable", "--n", str(n), "--views", str(n_views),
+             "--mesh-shape", "2,2,2", "--out", out_dir])
+        launches = _read_counters(counters)
+        got = Mesh.load_ply(res["ply"])
+    # 8 blocks of n / 2 planes, in 128-plane chunks, two carves
+    want_a = 2 * 8 * max(1, n // 2 // 128)
+    want_b = 8
+    _require(launches["warp_fused"] == want_a
+             and launches["mc_fused"] == want_b
+             and launches["interp_rows"] == 0,
+             f"(2, 2, 2) turntable launches {launches}: need {want_a} of the "
+             f"fused warp kernel and {want_b} of MC")
+    _require(_same_mesh(got, ref_mesh),
+             "(2, 2, 2) turntable: mesh != the unsharded turntable's")
+    _phase("mesh-222", f"turntable {n}^3 x {n_views} --mesh-shape 2,2,2 (8 "
+           f"blocks of {n // 2}^3 on one card): carve {res['carve_s']:.4f} s "
+           f"({res['fusions_per_s'] / 1e9:.3f} Gfusions/s), extract "
+           f"{res['extract_s']:.4f} s, launches {launches}; mesh == the "
+           f"unsharded turntable's byte for byte ({got.num_vertices} "
+           f"vertices)")
+
+    # kernel A == plain on block (1, 0, 1), all 256 planes
+    grid, opt, cams, imgs = pipeline.turntable_inputs(n, n_views, True,
+                                                      device)
+    linear = opt.sdf_interp == SdfInterpolation.BILINEAR
+    h = n // 2
+    cz, cy, cx = (grid.axis_centers_t(a, device)[s].contiguous()
+                  for a, s in ((2, slice(h, n)), (1, slice(0, h)),
+                               (0, slice(h, n))))
+    a = (*_empty_planes((h,) * 3, device), cx, cy, cz, cams.w2c,
+         cams.principal_point, cams.focal_length, imgs, opt, linear)
+    ks, ku = warp_fused.warp_fuse_planes(*a)
+    ps, pu = warp_fused.warp_fuse_planes_plain(*a)
+    torch.cuda.synchronize()
+    _require(torch.equal(ku, pu) and torch.equal(_bits(ks), _bits(ps))
+             and float((ku > 0).float().mean()) > 0.05,
+             "(2, 2, 2): fused warp kernel != plain on one block")
+    a_err = float((ks - ps).abs().nan_to_num(0).max())
+    ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 5)
+    bound = _warp_bound(a[0], a[1], imgs, n_views)
+    _phase("mesh-222", f"fused warp kernel == plain on block (1, 0, 1) "
+           f"{list(a[0].shape)} x {n_views} views (update_num exact, sdf "
+           f"bitwise): "
+           f"kernel {ms:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]}")
+    del a, ks, ku, ps, pu
+
+    # the windowed MC kernel == plain on one whole halo-extended block of
+    # the turntable state (k-, j- and i-windows, all three bases)
+    mesh = make_device_mesh(shape=(2, 2, 2), devices=[device] * 8)
+    sh = carve_views_warp_sharded(
+        VoxelGridState.create(grid, sharding=grid_sharding(mesh)), grid,
+        cams.w2c, cams.principal_point, cams.focal_length, imgs, opt=opt,
+        linear=linear, mesh=mesh)
+    halos = halo_exchange(sh)
+    b = (1, 0, 1)
+    args, window = _windowed_block(sh, halos, grid, b)
+    what = f"(2, 2, 2) turntable block {b}"
+    _require(all(window[w] == (1, h + 1)
+                 for w in ("own_k", "own_j", "own_i")),
+             f"{what}: windows {window}")
+    k, b_err = _require_window_equals_plain(args, window, True, what)
+    _require_owned_only(k, window, sh, b, what)
+    cubes = int(k.c_lin.numel())
+    _require(cubes > h * h // 32, f"{what}: only {cubes} cubes")
+    _phase("mesh-222", f"windowed MC kernel == plain byte for byte on block "
+           f"{b} of the turntable state extended to {list(args[0].shape)} "
+           f"(windows {window['own_k']} on all three axes, {cubes} cubes, "
+           f"halos emit nothing)")
+    del sh, halos, args, k
+
+    grid, st = _sphere_state(n_sphere, device=device)
+    sharding = grid_sharding(mesh)
+    sh = ShardedGridState.from_dense(st, sharding)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sphere_256")
+        t0 = time.perf_counter()
+        save_state(path, sh, grid, next_view=5, force_sharded=True)
+        save_s = time.perf_counter() - t0
+        _require(os.listdir(d) == ["sphere_256.proc0.npz"],
+                 f"sharded checkpoint files {os.listdir(d)}")
+        t0 = time.perf_counter()
+        back, grid2, next_view, _ = load_state(path, sharding=sharding)
+        load_s = time.perf_counter() - t0
+    _require(grid2 == grid and next_view == 5
+             and sorted(back.blocks) == sorted(sh.blocks), "sharded "
+             "checkpoint: grid, next view or blocks differ")
+    _require_blocks_equal(back, VoxelGridState(st.sdf, st.update_num),
+                          "sharded checkpoint")
+    _phase("mesh-222", f"sharded checkpoint of the {n_sphere}^3 sphere over "
+           f"(2, 2, 2): save {save_s:.3f} s, load {load_s:.3f} s, every "
+           f"block equal")
+    return launches, a_err, b_err
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def worker(rank: int, port: int, tmp: str) -> int:
+    """One of the two ranks of phase 19, both on cuda:0, at 512^3 x 36;
+    writes ``tmp/rank{rank}.json`` and, on rank 0, the two meshes."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vacancy_tpu_torch import pipeline
+    from vacancy_tpu_torch.checkpoint import load_state, save_state
+    from vacancy_tpu_torch.config import SdfInterpolation
+    from vacancy_tpu_torch.grid import VoxelGridState
+    from vacancy_tpu_torch.ops import fusion_warp
+    from vacancy_tpu_torch.parallel import (
+        carve_views_warp_sharded,
+        extract_mesh_sharded,
+        grid_sharding,
+        halo_exchange,
+        initialize_distributed,
+        make_device_mesh,
+    )
+
+    n, n_views = 512, 36
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    initialize_distributed(f"localhost:{port}", 2, rank)
+    grid, opt, cams, imgs = pipeline.turntable_inputs(n, n_views, True,
+                                                      device)
+    linear = opt.sdf_interp == SdfInterpolation.BILINEAR
+    cam_args = (cams.w2c, cams.principal_point, cams.focal_length, imgs)
+    out = {"rank": rank}
+
+    mesh = make_device_mesh(shape=(2, 2), devices=[device] * 2)
+    _require(mesh.world_size == 2 and mesh.rank == rank and mesh.size == 4,
+             f"mesh {mesh}")
+    sharding = grid_sharding(mesh)
+    dense = fusion_warp.carve_views_warp(
+        VoxelGridState.create(grid, device), grid, *cam_args, opt=opt,
+        linear=linear)
+    counters = _reset_counters()
+    sh = carve_views_warp_sharded(
+        VoxelGridState.create(grid, sharding=sharding), grid, *cam_args,
+        opt=opt, linear=linear, mesh=mesh)
+    torch.cuda.synchronize()
+    _require(sorted(sh.blocks) == [(rank, 0, 0), (rank, 1, 0)],
+             f"rank {rank} holds blocks {sorted(sh.blocks)}")
+    _require_blocks_equal(sh, dense, f"rank {rank} (2, 2)")
+    del dense
+
+    path = os.path.join(tmp, "ckpt")
+    t0 = time.perf_counter()
+    save_state(path, sh, grid, next_view=n_views)
+    back, grid2, next_view, _ = load_state(path, sharding=sharding)
+    out["checkpoint_s"] = time.perf_counter() - t0
+    _require(grid2 == grid and next_view == n_views
+             and os.path.exists(f"{path}.proc{rank}.npz"),
+             "per-process checkpoint: grid, next view or file")
+    for b, st in sh.blocks.items():
+        _require(torch.equal(back.blocks[b].update_num, st.update_num)
+                 and torch.equal(_bits(back.blocks[b].sdf), _bits(st.sdf)),
+                 f"rank {rank}: checkpoint block {b} differs")
+    del back
+
+    t0 = time.perf_counter()
+    fused = extract_mesh_sharded(sh, grid, mesh, engine="fused",
+                                 piece_dir=os.path.join(tmp, "pieces"))
+    out["extract_fused_s"] = time.perf_counter() - t0
+    out["halo"] = dict(halo_exchange.last)
+    out["launches"] = _read_counters(counters)
+    del sh
+
+    mesh2 = make_device_mesh(shape=(2,), devices=[device])
+    sh2 = carve_views_warp_sharded(
+        VoxelGridState.create(grid, sharding=grid_sharding(mesh2)), grid,
+        *cam_args, opt=opt, linear=linear, mesh=mesh2)
+    t0 = time.perf_counter()
+    xla = extract_mesh_sharded(sh2, grid, mesh2, engine="xla",
+                               piece_dir=os.path.join(tmp, "pieces_xla"))
+    out["extract_xla_s"] = time.perf_counter() - t0
+    out["halo_xla"] = dict(halo_exchange.last)
+    for name, m in (("fused", fused), ("xla", xla)):
+        if rank == 0:
+            _require(m is not None, f"rank 0 got no {name} mesh")
+            np.savez(os.path.join(tmp, f"{name}.npz"), vertices=m.vertices,
+                     faces=m.faces)
+        else:
+            _require(m is None, f"rank {rank} got a {name} mesh")
+    out["seconds"] = time.perf_counter() - t_start
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_two_ranks(ref_mesh, timeout_s: float = 300.0):
+    """Two ranks of this script on the one card, a (2, 2) mesh spanning
+    them; rank 0's meshes against the unsharded turntable's."""
+    import numpy as np
+    import torch
+
+    from vacancy_tpu_torch.mesh import Mesh
+
+    torch.cuda.empty_cache()
+    port = _free_port()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # each worker's output goes to a file: a full pipe would stall a
+        # rank inside a collective while its peer is waited for
+        logs = [os.path.join(tmp, f"worker{r}.log") for r in (0, 1)]
+        files = [open(path, "w") for path in logs]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", str(r),
+             str(port), tmp], stdout=f, stderr=subprocess.STDOUT)
+            for r, f in zip((0, 1), files)]
+        deadline = time.monotonic() + timeout_s
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"a worker was not done after {timeout_s} s")
+        finally:
+            for p, f in zip(procs, files):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                f.close()
+        for r, (p, path) in enumerate(zip(procs, logs)):
+            with open(path) as f:
+                out = f.read()
+            _require(p.returncode == 0,
+                     f"worker {r} failed ({p.returncode}):\n{out[-4000:]}")
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for name in ("fused", "xla"):
+            with np.load(os.path.join(tmp, f"{name}.npz")) as z:
+                got = Mesh(vertices=z["vertices"], faces=z["faces"])
+            _require(_same_mesh(got, ref_mesh),
+                     f"two ranks: rank 0's {name} mesh != the unsharded "
+                     f"turntable's")
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    launches = {k: r0["launches"][k] + r1["launches"][k]
+                for k in r0["launches"]}
+    _require(r0["halo"]["transport"] == r1["halo"]["transport"]
+             and r0["halo"]["transport"].startswith("gloo, host-staged"),
+             f"two ranks on one card: transport {r0['halo']}")
+    # per rank: 2 blocks of 256 planes, two chunks each; MC once per block
+    _require(launches["warp_fused"] == 8 and launches["mc_fused"] == 4,
+             f"two ranks: launches {launches}")
+    _phase("two-ranks", f"2 processes on cuda:0, (2, 2) mesh at 512^3 x 36 "
+           f"(each rank 2 blocks [256, 256, 512]): blocks == the dense "
+           f"carve, per-process checkpoints round-trip "
+           f"({r0['checkpoint_s']:.2f} / {r1['checkpoint_s']:.2f} s), rank "
+           f"0's fused mesh and engine='xla' mesh on a (2,) mesh == the "
+           f"unsharded turntable's byte for byte, rank 1 got None; "
+           f"transport: {r0['halo']['transport']}; halo exchange "
+           f"{r0['halo']['bytes']} bytes sent by rank 0 in "
+           f"{r0['halo']['ms']:.3f} ms ((2,) mesh: "
+           f"{r0['halo_xla']['bytes']} bytes, {r0['halo_xla']['ms']:.3f} "
+           f"ms); extract fused {r0['extract_fused_s']:.3f} s, xla "
+           f"{r0['extract_xla_s']:.3f} s; launches {launches}; workers "
+           f"{r0['seconds']:.1f} / {r1['seconds']:.1f} s, phase wall "
+           f"{wall:.1f} s")
+    return launches
+
+
 def main() -> int:
+    if len(sys.argv) == 5 and sys.argv[1] == "--worker":
+        # --worker RANK PORT DIR: one rank of phase 19
+        return worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not os.path.isdir(os.path.join(HERE, "vacancy_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout that holds "
                          "vacancy_tpu_torch/")
@@ -1345,17 +2076,29 @@ def main() -> int:
     phase_build()
     a_err, a_ms, a_plain, a_bound = phase_warp(device)
     b_err, b_ms, b_plain, b_bound = phase_mc(device)
-    _, a_main_err, b_main_err = phase_main_path(device)
+    _, a_main_err, b_main_err, turntable_mesh = phase_main_path(device)
     c_err, c_times = phase_interp(device)
     phase_two_pass(device)
     _, c_main_err = phase_facade(device)
     a_ortho_err, _, _ = phase_ortho_exact(device)
     d_err, d_ms, d_plain, d_lib, d_bound = phase_probe(device)
     scan_small_err = phase_mc_passes(device)
-    sweep_launches, a_sweep_err, b_sweep_err, scan, _ = phase_sweep(device)
+    sweep_launches, a_sweep_err, b_sweep_err, scan, sweep_ref = phase_sweep(
+        device)
     blocked_launches, c_blocked_err = phase_blocked_two_pass(device)
     bench_launches = phase_bench(device)
     phase_xla_checkpoint(device)
+    b_window_err = phase_mc_windows(device)
+    sharded_launches, a_sharded_err, b_sharded_err = phase_sharded_sweep(
+        device, *sweep_ref)
+    del sweep_ref
+    _, a_222_err, b_222_err = phase_mesh_222(device, turntable_mesh)
+    phase_two_ranks(turntable_mesh)
+
+    def on_sweeps(name):
+        """Launches on the unsharded sweep and both sharded sweeps."""
+        return sweep_launches[name] + sum(
+            got[name] for got in sharded_launches.values())
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None):
@@ -1370,12 +2113,13 @@ def main() -> int:
     kernels = [
         entry("warp_fused", "warp_fused.cu",
               "vacancy_tpu/ops/warp_fused.py:252",
-              sweep_launches["warp_fused"],
-              max(a_err, a_main_err, a_ortho_err, a_sweep_err), a_ms,
-              a_plain, a_bound),
+              on_sweeps("warp_fused"),
+              max(a_err, a_main_err, a_ortho_err, a_sweep_err,
+                  a_sharded_err, a_222_err), a_ms, a_plain, a_bound),
         entry("mc_fused", "mc_fused.cu", "vacancy_tpu/ops/mc_fused.py:285",
-              sweep_launches["mc_fused"],
-              max(b_err, b_main_err, b_sweep_err), b_ms, b_plain, b_bound),
+              on_sweeps("mc_fused"),
+              max(b_err, b_main_err, b_sweep_err, b_window_err,
+                  b_sharded_err, b_222_err), b_ms, b_plain, b_bound),
         entry("interp_rows", "interp_rows.cu",
               "vacancy_tpu/ops/warp_gather.py:29",
               blocked_launches["interp_rows"],
@@ -1384,7 +2128,7 @@ def main() -> int:
         entry("probe", "probe.cu", "bench.py:53", bench_launches["probe"],
               d_err, d_ms, d_plain, d_bound, d_lib),
         entry("mc_scan", "mc_fused.cu", "tests/test_mc_fused.py:199",
-              sweep_launches["mc_scan"],
+              on_sweeps("mc_scan"),
               float(max(scan_small_err, scan["err"])), scan["ms"],
               scan["plain_ms"],
               scan["bound"], scan["library_ms"]),

@@ -601,3 +601,62 @@ def test_mc_count_and_emit_equal_mask_compaction_on_gpu(cuda_device,
     for a, b in zip(k.as_tuple(), p.as_tuple()):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# the windows of one block of a (2, 2, 2) split of a 24 x 40 x 52 grid, a
+# z-only split, a y/x-only split, and an empty window
+WINDOW_CASES = {
+    "zyx-block": dict(own_k=(1, 13), own_j=(1, 21), own_i=(1, 27), zb=11,
+                      yx_base=(19, 25), gdims=(40, 52)),
+    "z-first-block": dict(own_k=(1, 13), zb=-1),
+    "yx-block": dict(own_j=(1, 21), own_i=(1, 27), yx_base=(-1, 25),
+                     gdims=(40, 52)),
+    "empty": dict(own_k=(3, 3)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "nointerp"])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_mc_windowed_count_and_emit_equal_plain_on_gpu(cuda_device, case,
+                                                       linear):
+    """B with emission windows and global-id bases on a halo-extended
+    block: tile counts, the four streams and plane counts equal the plain
+    version's byte for byte; the planes outside own_k count nothing."""
+    kw = WINDOW_CASES[case]
+    shape = {"zyx-block": (14, 22, 28), "z-first-block": (14, 40, 52),
+             "yx-block": (24, 22, 28), "empty": (9, 21, 13)}[case]
+    args = _mc_case(shape, cuda_device, seed=21)
+    win = {k: kw[k] for k in ("own_k", "own_j", "own_i") if k in kw}
+    counts = mc_fused.mc_tile_counts(*args, linear_interp=linear, **kw)
+    assert torch.equal(
+        counts, mc_fused.mc_tile_counts_plain(*args[:2], **win))
+    before = mc_fused.marching_cubes_fused.launches
+    k = mc_fused.marching_cubes_fused(*args, linear_interp=linear, **kw)
+    p = mc_fused.mc_streams_plain(*args, linear_interp=linear, **kw)
+    torch.cuda.synchronize()
+    assert mc_fused.marching_cubes_fused.launches == before + 1
+    for a, b in zip(k.as_tuple(), p.as_tuple()):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    lo, hi = kw.get("own_k", (0, shape[0]))
+    assert int(k.plane_counts[:lo].sum()) == 0
+    assert int(k.plane_counts[hi:].sum()) == 0
+    assert (int(k.plane_counts.sum()) > 0) == (case != "empty")
+    # and the defaults are the unwindowed kernel
+    d = mc_fused.marching_cubes_fused(*args, linear_interp=linear)
+    e = mc_fused.marching_cubes_fused(
+        *args, linear_interp=linear, own_k=(0, shape[0]),
+        own_j=(0, shape[1]), own_i=(0, shape[2]), zb=0, yx_base=(0, 0),
+        gdims=shape[1:])
+    for a, b in zip(d.as_tuple(), e.as_tuple()):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_mc_kernel_refuses_ids_past_int32_on_gpu(cuda_device):
+    args = _mc_case((4, 8, 8), cuda_device)
+    with pytest.raises(ValueError, match="global grid is too large"):
+        mc_fused.marching_cubes_fused(*args, zb=2047, gdims=(1024, 1024))
+    with pytest.raises(ValueError, match="leave the global plane"):
+        mc_fused.marching_cubes_fused(*args, yx_base=(0, 4), gdims=(8, 8))

@@ -119,6 +119,30 @@ def test_run_turntable_cli_on_cpu_takes_the_plain_versions(tmp_path, capsys):
         assert abs(out[k] - ref[k]) <= 0.005 * ref[k]
 
 
+def test_run_turntable_sharded_equals_unsharded(tmp_path):
+    """run_turntable over a (2, 2, 2) mesh of CPU blocks, from Python and
+    from the CLI: the unsharded run's PLY byte for byte."""
+    ref = tpipe.run_turntable(n=N, n_views=VIEWS, device="cpu",
+                              out_dir=str(tmp_path / "dense"))
+    assert ref["sharded"] is False and ref["mesh_shape"] is None
+    out = tpipe.run_turntable(n=N, n_views=VIEWS, device="cpu", sharded=True,
+                              mesh_shape=(2, 2, 2),
+                              out_dir=str(tmp_path / "cut"))
+    assert out["sharded"] is True and out["mesh_shape"] == [2, 2, 2]
+    assert out["transport"] == "device copy"
+    cli = tpipe.main(["turntable", "--n", str(N), "--views", str(VIEWS),
+                      "--device", "cpu", "--mesh-shape", "2,4", "--out",
+                      str(tmp_path / "cli")])
+    assert cli["sharded"] is True and cli["mesh_shape"] == [2, 4]
+    want = Path(ref["ply"]).read_bytes()
+    assert Path(out["ply"]).read_bytes() == want
+    assert Path(cli["ply"]).read_bytes() == want
+    # --sharded alone on one block-holder runs unsharded and says so
+    one = tpipe.main(["turntable", "--n", "16", "--views", "2", "--device",
+                      "cpu", "--sharded"])
+    assert one["sharded"] is False and one["devices"] == 1
+
+
 def test_ply_ascii_and_binary_round_trip(tmp_path):
     rng = np.random.default_rng(0)
     mesh = Mesh(vertices=rng.normal(size=(7, 3)),

@@ -208,8 +208,11 @@ def test_run_sweep_matches_jax(tmp_path, capsys):
             mc_fused.marching_cubes_fused.launches) == before
     ref = j_run_sweep(n=32, n_views=6, sharded=False,
                       out_dir=str(tmp_path / "jax"))
-    # the JAX sweep's keys, with "device" in place of "devices"
-    assert set(out) - {"device"} == set(ref) - {"devices"}
+    # the JAX sweep's keys, plus the device's name, the mesh's shape and
+    # the halo transport
+    assert set(out) - {"device", "mesh_shape", "transport"} == set(ref)
+    assert out["devices"] == 1 and out["mesh_shape"] is None
+    assert out["transport"] is None
     assert out["config"] == ref["config"] == "baseline-5-sweep"
     assert tuple(out["grid"]) == tuple(ref["grid"]) == (32, 32, 32)
     assert out["views"] == ref["views"] and out["sharded"] is False
@@ -233,10 +236,62 @@ def test_run_sweep_matches_jax(tmp_path, capsys):
 def test_run_sweep_options():
     out = tpipe.run_sweep(n=16, n_views=2, extract=False, device="cpu")
     assert "mc_vertices" not in out and out["carve_s"] > 0
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tpipe.run_sweep(n=16, n_views=2, sharded=True, device="cpu")
+    # sharded is the default, as in the JAX package, and like there a
+    # single block-holder with no mesh shape runs unsharded and says so
+    assert out["sharded"] is False
+    out = tpipe.run_sweep(n=16, n_views=2, sharded=True, mesh_shape="auto",
+                          extract=False, device="cpu")
+    assert out["sharded"] is False and out["mesh_shape"] is None
     if not torch.cuda.is_available():
         # the default device is the card: no quiet run on the CPU
         with pytest.raises((AssertionError, RuntimeError)):
             tpipe.run_sweep(n=16, n_views=2)
     assert len(jax.devices()) >= 1
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4,), (2, 2, 2)], ids=str)
+def test_run_sweep_sharded_equals_unsharded(tmp_path, mesh_shape):
+    """The sharded sweep over CPU blocks writes the unsharded sweep's PLY,
+    byte for byte."""
+    ref = tpipe.run_sweep(n=32, n_views=6, sharded=False, device="cpu",
+                          out_dir=str(tmp_path / "dense"))
+    out = tpipe.run_sweep(n=32, n_views=6, sharded=True,
+                          mesh_shape=mesh_shape, device="cpu",
+                          out_dir=str(tmp_path / "cut"))
+    assert ref["sharded"] is False and out["sharded"] is True
+    assert out["mesh_shape"] == list(mesh_shape)
+    assert out["transport"] == "device copy" and out["devices"] == 1
+    assert set(out) == set(ref)
+    for k in ("grid", "views", "mc_vertices", "mc_faces"):
+        assert out[k] == ref[k]
+    assert ((tmp_path / "cut" / "sweep_32.ply").read_bytes()
+            == (tmp_path / "dense" / "sweep_32.ply").read_bytes())
+    assert out["mc_faces"] > 1000
+
+
+def test_sharded_sweep_pads_a_grid_that_does_not_divide():
+    out = tpipe.run_sweep(n=15, n_views=2, mesh_shape=(4,), device="cpu")
+    assert out["grid"] == [15, 15, 16] and out["sharded"] is True
+
+
+def test_sweep_cli_parses_the_sharding_flags(tmp_path, capsys):
+    out = tpipe.main(["sweep", "--n", "16", "--views", "2", "--device", "cpu",
+                      "--mesh-shape", "2,2", "--piece-dir",
+                      str(tmp_path / "pieces"), "--no-extract"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    assert out["sharded"] is True and out["mesh_shape"] == [2, 2]
+    out = tpipe.main(["sweep", "--n", "16", "--views", "2", "--device", "cpu",
+                      "--mesh-shape", "2,2", "--no-sharded", "--no-extract"])
+    assert out["sharded"] is False and out["mesh_shape"] is None
+    out = tpipe.main(["sweep", "--n", "16", "--views", "2", "--device", "cpu",
+                      "--mesh-shape", "auto", "--no-extract"])
+    assert out["sharded"] is False  # one block-holder: nothing to cut
+    with pytest.raises(SystemExit):
+        tpipe.main(["sweep", "--mesh-shape"])
+    with pytest.raises(ValueError, match="1-3 dims"):
+        tpipe.main(["sweep", "--n", "16", "--views", "2", "--device", "cpu",
+                    "--mesh-shape", "1,1,1,2", "--no-extract"])
+    # --coordinator without its peers' numbers is refused before any work
+    with pytest.raises(ValueError, match="num_processes"):
+        tpipe.main(["sweep", "--n", "16", "--views", "2", "--device", "cpu",
+                    "--coordinator", "localhost:1"])

@@ -35,13 +35,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 _SIGNATURES = {
     "vt_warp_fuse_planes": [_P] * 10 + [_I] * 15 + [_F, _F, _I, _P],
     "vt_interp_rows": [_P] * 3 + [_I] * 8 + [_P],
     "vt_mc_tiles": [_I, _I],
-    "vt_mc_count": [_P] * 5 + [_I] * 3 + [_F, _I] + [_P] * 2,
+    "vt_mc_count": [_P] * 5 + [_I] * 3 + [_F, _I, _IP] + [_P] * 2,
     "vt_mc_scan": [_P] * 4 + [_I] * 3 + [_P],
-    "vt_mc_emit": [_P] * 5 + [_I] * 3 + [_F, _I] + [_P] * 10,
+    "vt_mc_emit": [_P] * 5 + [_I] * 3 + [_F, _I, _IP] + [_P] * 10,
     "vt_probe_scale": [_P, _P, _I, _P],
 }
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -98,6 +98,23 @@ class VoxelCarverOption:
             raise ValueError("input bounding box is invalid")
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """How the voxel grid is partitioned over a block mesh.
+
+    The grid is block-partitioned along z (an int block count) or over
+    2-D/3-D (z, y[, x]) blocks (a tuple mesh shape); fusion is
+    embarrassingly parallel per block and marching cubes performs a
+    one-voxel halo exchange per sharded axis (parallel/sharded.py).
+    Build the mesh with ``parallel.make_device_mesh(config=...)``.
+    """
+
+    axis_name: str = "z"
+    # Blocks along z (int), a (z, y[, x]) mesh shape (tuple), or None
+    # for one block per device on a 1-D z mesh.
+    n_devices: Union[Tuple[int, ...], int, None] = None
+
+
 def _from_fields(cls, other):
     """An instance of the dataclass ``cls`` with the same-named fields of
     ``other``: enums matched by ``.name``, nested options converted."""
@@ -113,6 +130,17 @@ def _from_fields(cls, other):
             v = tuple(float(x) for x in v)
         kw[f.name] = v
     return cls(**kw)
+
+
+def sharding_config_from(other) -> ShardingConfig:
+    """The port's ``ShardingConfig`` with the fields of ``other`` (e.g. a
+    ``vacancy_tpu.config.ShardingConfig``); imports nothing of it."""
+    n = other.n_devices
+    if isinstance(n, (tuple, list)):
+        n = tuple(int(v) for v in n)
+    elif n is not None:
+        n = int(n)
+    return ShardingConfig(axis_name=str(other.axis_name), n_devices=n)
 
 
 def update_option_from(other) -> VoxelUpdateOption:

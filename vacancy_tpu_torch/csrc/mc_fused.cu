@@ -33,9 +33,23 @@
 // carried between them), but only for voxels with a straddling edge, which
 // are a thin shell, so the cost tracks surface occupancy.
 //
+// A sharded caller (parallel/sharded.py) passes a halo-extended LOCAL block:
+// every mask (lattice, cube validity, adjacency) stays array-local -- the
+// halos of an out-of-grid side carry InvalidSdf, so dense semantics hold --
+// while only voxels inside the emission window own_lo <= (k, j, i) < own_hi
+// emit (the TPU kernel's own_k / own_j / own_i), and linear ids are GLOBAL:
+// lin = (k + zb)*gny*gnx + (j + yb)*gnx + (i + xb) (its zb, yx_base, gdims).
+// A voxel outside the window returns before any load. The defaults (the
+// whole array, bases 0, gny = ny, gnx = nx) give the unsharded ids; a
+// window that is the whole array takes kernels compiled without the test
+// (template parameter WIN): with it the count pass needs 60 registers
+// where it had 47, one block per SM fewer, and the unsharded path would pay
+// for a test that is always true.
+//
 // Numerics: built with -fmad=false and IEEE division; the vertex
 // interpolation keeps ops/mc_fused._edge_vertex_interp's order.
-// Linear ids are int32 (fine up to 1024^3). The kernels allocate nothing
+// Linear ids are int32 (fine up to a GLOBAL grid of 1024^3; the wrapper
+// refuses more). The kernels allocate nothing
 // and run on the caller's stream; each C entry point returns cudaError_t.
 
 #include <cuda_runtime.h>
@@ -62,6 +76,9 @@ struct McArgs {
   float iso;
   int linear;
   int tiles_per_plane;
+  int own_lo[3], own_hi[3];  // emission window, local (k, j, i)
+  int zb, yb, xb;            // global coordinate of local (0, 0, 0)
+  int gny, gnx;              // global plane dims, for linear ids only
 };
 
 struct McOut {
@@ -112,12 +129,18 @@ struct VoxelFlags {
   int cse;
 };
 
-// flags (and, with want_pos, payloads) of plane-local voxel `e` of plane k
+// flags (and, with want_pos, payloads) of plane-local voxel `e` of plane k;
+// WIN: the emission window is smaller than the array
+template <bool WIN>
 __device__ VoxelFlags voxel_flags(const McArgs& a, int k, int e,
                                   bool want_pos) {
   VoxelFlags f{0u, 0.0f, 0.0f, 0.0f, 0};
   const int j = e / a.nx;
   const int i = e - j * a.nx;
+  // halo planes, rows and lanes of a sharded block emit nothing
+  if (WIN && (k < a.own_lo[0] || k >= a.own_hi[0] || j < a.own_lo[1] ||
+              j >= a.own_hi[1] || i < a.own_lo[2] || i >= a.own_hi[2]))
+    return f;
   // corners in CORNER_OFFSETS order: 0 (0,0,0) 1 (1,0,0) 2 (1,1,0)
   // 3 (0,1,0), 4..7 the same at z+1; out-of-grid corners are invalid
   float c[8];
@@ -200,6 +223,7 @@ __device__ __forceinline__ void tile_coords(const McArgs& a, int* k,
   *end = min(*base + TILE, a.ny * a.nx);
 }
 
+template <bool WIN>
 __global__ void __launch_bounds__(NT)
 mc_count_kernel(McArgs a, int* tile_counts) {
   __shared__ int part[NWARPS][4];
@@ -210,7 +234,7 @@ mc_count_kernel(McArgs a, int* tile_counts) {
   for (int it = 0; it < PER; ++it) {
     const int e = base + it * NT + tid;
     if (e < end) {
-      const unsigned b = voxel_flags(a, k, e, false).bits;
+      const unsigned b = voxel_flags<WIN>(a, k, e, false).bits;
 #pragma unroll
       for (int s = 0; s < 4; ++s) cnt[s] += (b >> s) & 1u;
     }
@@ -272,6 +296,7 @@ mc_scan_kernel(const int* tile_counts, int* tile_offsets, int* totals,
   }
 }
 
+template <bool WIN>
 __global__ void __launch_bounds__(NT)
 mc_emit_kernel(McArgs a, const int* tile_offsets, McOut o) {
   __shared__ int wtot[PER][NWARPS][4];
@@ -286,7 +311,7 @@ mc_emit_kernel(McArgs a, const int* tile_offsets, McOut o) {
 #pragma unroll
   for (int it = 0; it < PER; ++it) {
     const int e = base + it * NT + tid;
-    f[it] = e < end ? voxel_flags(a, k, e, true)
+    f[it] = e < end ? voxel_flags<WIN>(a, k, e, true)
                     : VoxelFlags{0u, 0.0f, 0.0f, 0.0f, 0};
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
@@ -298,12 +323,15 @@ mc_emit_kernel(McArgs a, const int* tile_offsets, McOut o) {
   __syncthreads();
 
   const int64_t tb = (int64_t)blockIdx.x * 4;
-  const int lin_plane = k * a.ny * a.nx;
 #pragma unroll
   for (int it = 0; it < PER; ++it) {
     if (!f[it].bits) continue;
+    // only owned voxels reach here: their global ids are in range even
+    // where plane, row or lane 0 is a halo and the base is -1
     const int e = base + it * NT + tid;
-    const int lin = lin_plane + e;
+    const int j = e / a.nx;
+    const int lin = (k + a.zb) * a.gny * a.gnx + (j + a.yb) * a.gnx +
+                    (e - j * a.nx + a.xb);
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       if (!((f[it].bits >> s) & 1u)) continue;
@@ -322,11 +350,28 @@ mc_emit_kernel(McArgs a, const int* tile_offsets, McOut o) {
   }
 }
 
-McArgs make_args(const float* sdf, const int* un, const float* cx,
-                 const float* cy, const float* cz, int nz, int ny, int nx,
-                 float iso, int linear) {
+// win = {own_k lo, hi, own_j lo, hi, own_i lo, hi, zb, yb, xb, gny, gnx}
+
+bool make_args(const float* sdf, const int* un, const float* cx,
+               const float* cy, const float* cz, int nz, int ny, int nx,
+               float iso, int linear, const int* win, McArgs* a) {
+  if (nz < 1 || ny < 1 || nx < 1 || win == nullptr) return false;
+  const int dims[3] = {nz, ny, nx};
+  for (int d = 0; d < 3; ++d)
+    if (win[2 * d] < 0 || win[2 * d + 1] > dims[d] ||
+        win[2 * d] > win[2 * d + 1])
+      return false;
+  if (win[9] < 1 || win[10] < 1) return false;
   const int tpp = (ny * nx + TILE - 1) / TILE;
-  return McArgs{sdf, un, cx, cy, cz, nz, ny, nx, iso, linear, tpp};
+  *a = McArgs{sdf, un, cx, cy, cz, nz, ny, nx, iso, linear, tpp,
+              {win[0], win[2], win[4]}, {win[1], win[3], win[5]},
+              win[6], win[7], win[8], win[9], win[10]};
+  return true;
+}
+
+bool windowed(const McArgs& a) {
+  return a.own_lo[0] > 0 || a.own_lo[1] > 0 || a.own_lo[2] > 0 ||
+         a.own_hi[0] < a.nz || a.own_hi[1] < a.ny || a.own_hi[2] < a.nx;
 }
 
 }  // namespace
@@ -336,14 +381,22 @@ extern "C" int vt_mc_tiles(int ny, int nx) {
 }
 
 // Pass 1: tile_counts is [n_tiles, 4], n_tiles = nz * vt_mc_tiles(ny, nx).
+// win is a HOST array of 11 ints (see make_args): the emission window,
+// the global bases and the global plane dims.
 extern "C" int vt_mc_count(const float* sdf, const int* un, const float* cx,
                            const float* cy, const float* cz, int nz, int ny,
-                           int nx, float iso, int linear, int* tile_counts,
-                           void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
-  const McArgs a = make_args(sdf, un, cx, cy, cz, nz, ny, nx, iso, linear);
-  mc_count_kernel<<<nz * a.tiles_per_plane, NT, 0, (cudaStream_t)stream>>>(
-      a, tile_counts);
+                           int nx, float iso, int linear, const int* win,
+                           int* tile_counts, void* stream) {
+  McArgs a;
+  if (!make_args(sdf, un, cx, cy, cz, nz, ny, nx, iso, linear, win, &a))
+    return (int)cudaErrorInvalidValue;
+  const int grid = nz * a.tiles_per_plane;
+  if (windowed(a))
+    mc_count_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        a, tile_counts);
+  else
+    mc_count_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        a, tile_counts);
   return (int)cudaGetLastError();
 }
 
@@ -361,19 +414,26 @@ extern "C" int vt_mc_scan(const int* tile_counts, int* tile_offsets,
   return (int)cudaGetLastError();
 }
 
-// Pass 3: writes each stream to buffers of exactly totals[s] elements.
+// Pass 3: writes each stream to buffers of exactly totals[s] elements; win
+// as in vt_mc_count (the two passes must be given the same window).
 extern "C" int vt_mc_emit(const float* sdf, const int* un, const float* cx,
                           const float* cy, const float* cz, int nz, int ny,
-                          int nx, float iso, int linear,
+                          int nx, float iso, int linear, const int* win,
                           const int* tile_offsets, float* vx_pos,
                           int* vx_lin, float* vy_pos, int* vy_lin,
                           float* vz_pos, int* vz_lin, int* c_lin,
                           int* c_case, void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
-  const McArgs a = make_args(sdf, un, cx, cy, cz, nz, ny, nx, iso, linear);
+  McArgs a;
+  if (!make_args(sdf, un, cx, cy, cz, nz, ny, nx, iso, linear, win, &a))
+    return (int)cudaErrorInvalidValue;
   const McOut o{vx_pos, vx_lin, vy_pos, vy_lin, vz_pos, vz_lin, c_lin,
                 c_case};
-  mc_emit_kernel<<<nz * a.tiles_per_plane, NT, 0, (cudaStream_t)stream>>>(
-      a, tile_offsets, o);
+  const int grid = nz * a.tiles_per_plane;
+  if (windowed(a))
+    mc_emit_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        a, tile_offsets, o);
+  else
+    mc_emit_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        a, tile_offsets, o);
   return (int)cudaGetLastError();
 }

@@ -9,12 +9,18 @@ with flat index ``z*ny*nx + y*nx + x`` (the reference voxel id,
 ``voxel_carver.cc:333``), exactly as ``vacancy_tpu/grid.py`` lays it out.
 Voxel centers are recomputed from indices; ``GridSpec`` keeps the JAX
 package's formulas verbatim so the centers are bitwise the same.
+
+A block-sharded state (``ShardedGridState``) is the same grid cut into
+equal blocks over a ``parallel.BlockMesh``: this process's blocks, each a
+``VoxelGridState`` of its own on its block's device, keyed by
+(bz, by, bx), plus the global shape -- the port's counterpart of a JAX
+array with a ``NamedSharding``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -97,16 +103,79 @@ class VoxelGridState:
     update_num: torch.Tensor  # i32[Z, Y, X]
 
     @staticmethod
-    def create(grid: GridSpec, device) -> "VoxelGridState":
+    def create(grid: GridSpec, device=None, sharding=None):
+        """The untouched state of ``grid`` on ``device``, or, with a
+        ``parallel.grid_sharding(mesh)``, a ``ShardedGridState`` whose
+        blocks lie on the mesh's devices."""
         if grid.num_voxels > np.iinfo(np.int32).max:
             raise ValueError("too many voxels")  # voxel_carver.cc:298-302
-        shape = grid.shape_zyx
-        return VoxelGridState(
-            sdf=torch.full(
-                shape, float(INVALID_SDF), dtype=torch.float32, device=device
-            ),
-            update_num=torch.zeros(shape, dtype=torch.int32, device=device),
-        )
+        if sharding is not None:
+            if device is not None:
+                raise ValueError("a sharded state takes its devices from "
+                                 "the mesh: pass device or sharding")
+            shape = sharding.block_shape(grid.shape_zyx)
+            return ShardedGridState(
+                blocks={b: _empty_state(shape, sharding.device_of(b))
+                        for b in sharding.local_blocks()},
+                sharding=sharding, shape=grid.shape_zyx)
+        if device is None:
+            raise ValueError("VoxelGridState.create needs a device or a "
+                             "sharding")
+        return _empty_state(grid.shape_zyx, device)
+
+
+def _empty_state(shape, device) -> VoxelGridState:
+    return VoxelGridState(
+        sdf=torch.full(shape, float(INVALID_SDF), dtype=torch.float32,
+                       device=device),
+        update_num=torch.zeros(shape, dtype=torch.int32, device=device),
+    )
+
+
+@dataclasses.dataclass
+class ShardedGridState:
+    """The fusion state cut into equal blocks over a block mesh.
+
+    ``blocks`` holds THIS process's blocks, each a contiguous
+    ``VoxelGridState`` on its block's device, keyed by (bz, by, bx);
+    ``sharding`` is the ``parallel.GridSharding`` that places them and
+    ``shape`` the global (nz, ny, nx)."""
+
+    blocks: Dict[Tuple[int, int, int], VoxelGridState]
+    sharding: object
+    shape: Tuple[int, int, int]
+
+    @staticmethod
+    def from_dense(state: VoxelGridState, sharding) -> "ShardedGridState":
+        """Cut a dense state into this process's blocks (copies, each on
+        its block's device)."""
+        shape = tuple(state.sdf.shape)
+        blocks = {}
+        for b in sharding.local_blocks():
+            sl = sharding.slices(b, shape)
+            dev = sharding.device_of(b)
+            blocks[b] = VoxelGridState(
+                sdf=state.sdf[sl].to(dev, copy=True).contiguous(),
+                update_num=state.update_num[sl].to(dev, copy=True)
+                .contiguous())
+        return ShardedGridState(blocks, sharding, shape)
+
+    def gather(self, device=None) -> VoxelGridState:
+        """One dense state on ``device`` (default: the first block's).
+        Every block must be local: a state that spans processes has no
+        dense form on any of them."""
+        missing = [b for b in self.sharding.blocks() if b not in self.blocks]
+        if missing:
+            raise ValueError(f"blocks {missing} live on other processes")
+        if device is None:
+            device = next(iter(self.blocks.values())).sdf.device
+        sdf = torch.empty(self.shape, dtype=torch.float32, device=device)
+        un = torch.empty(self.shape, dtype=torch.int32, device=device)
+        for b, st in self.blocks.items():
+            sl = self.sharding.slices(b, self.shape)
+            sdf[sl] = st.sdf.to(device)
+            un[sl] = st.update_num.to(device)
+        return VoxelGridState(sdf=sdf, update_num=un)
 
 
 def state_from_numpy(sdf: np.ndarray, update_num: np.ndarray,
@@ -123,6 +192,23 @@ def state_from_numpy(sdf: np.ndarray, update_num: np.ndarray,
         sdf=torch.from_numpy(sdf).to(device, copy=True),
         update_num=torch.from_numpy(update_num).to(device, copy=True),
     )
+
+
+def sharded_state_from_numpy(sdf: np.ndarray, update_num: np.ndarray,
+                             mesh) -> ShardedGridState:
+    """A state given as global numpy arrays, cut into this process's
+    blocks of ``mesh`` (a ``parallel.BlockMesh``): the same arrays a JAX
+    run shards with ``jax.device_put(a, grid_sharding(mesh))``."""
+    from .parallel.mesh_utils import grid_sharding
+
+    return ShardedGridState.from_dense(
+        state_from_numpy(sdf, update_num, "cpu"), grid_sharding(mesh))
+
+
+def sharded_state_to_numpy(
+        state: ShardedGridState) -> Tuple[np.ndarray, np.ndarray]:
+    """``state_to_numpy`` of a sharded state whose blocks are all local."""
+    return state_to_numpy(state.gather("cpu"))
 
 
 def state_to_numpy(state: VoxelGridState) -> Tuple[np.ndarray, np.ndarray]:

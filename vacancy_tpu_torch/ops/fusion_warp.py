@@ -207,6 +207,60 @@ def _fused_kernel_takes(device: torch.device, h: int) -> bool:
     return fits
 
 
+def warp_carve_centers(
+    sdf: torch.Tensor,  # f32[NZ, NY, NX]
+    un: torch.Tensor,  # i32[NZ, NY, NX]
+    cx: torch.Tensor,  # f32[NX]
+    cy: torch.Tensor,  # f32[NY]
+    cz: torch.Tensor,  # f32[NZ]
+    w2c: torch.Tensor,  # f32[V, 4, 4]
+    principal_point: torch.Tensor,  # f32[V, 2]
+    focal_length: torch.Tensor,  # f32[V, 2]
+    sdf_images: torch.Tensor,  # f32[V, H, W]
+    opt: VoxelUpdateOption,
+    linear: bool,
+    roi: Optional[Tuple[int, int, int, int]],
+    chunk_nz: Optional[int] = None,
+    z_rows: Optional[torch.Tensor] = None,  # f32[V, 4]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The warp engines on centre vectors: what ``carve_views_warp`` and
+    ``carve_views_warp_blocked`` run on a grid's centres, and the sharded
+    carve (``parallel/sharded.py``) on each block's slices of them. The
+    one place where the engine is chosen: by the image height, before any
+    launch (module docstring). ``z_rows``: the real camera-z rows of
+    orthographic views (``ortho_homography``), which kernel A carries as
+    four more coefficients and the two-pass engine evaluates per view.
+
+    Without ``chunk_nz``, or with at most that many planes, one call that
+    returns new tensors. With more planes, a host loop over z-chunks that
+    UPDATES (sdf, un) IN PLACE and returns them: kernel A writes each
+    chunk over its input, and the two-pass engine's chunk result is
+    copied over it."""
+    dev = sdf.device
+    fused = _fused_kernel_takes(dev, sdf_images.shape[1])
+    views = (w2c, principal_point, focal_length, sdf_images, opt, linear, roi)
+    nz = sdf.shape[0]
+    if chunk_nz is None or nz <= chunk_nz:
+        if fused:
+            return warp_fused.warp_fuse_planes(sdf, un, cx, cy, cz, *views,
+                                               ortho_rows=z_rows)
+        return warp_fold(sdf, un, cx, cy, cz, *views, interp_rows,
+                         z_rows=z_rows)
+    chunk_nz = _snap_chunk_nz(nz, chunk_nz)
+    for z_lo in range(0, nz, chunk_nz):
+        s = sdf[z_lo:z_lo + chunk_nz]
+        u = un[z_lo:z_lo + chunk_nz]
+        args = (s, u, cx, cy, cz[z_lo:z_lo + chunk_nz].contiguous(), *views)
+        if fused:
+            warp_fused.warp_fuse_planes(*args, ortho_rows=z_rows, out=(s, u))
+        else:
+            new_s, new_u = warp_fold(*args, interp_rows, z_rows=z_rows)
+            s.copy_(new_s)
+            u.copy_(new_u)
+            del new_s, new_u
+    return sdf, un
+
+
 def carve_views_warp(
     state: VoxelGridState,
     grid: GridSpec,
@@ -221,18 +275,15 @@ def carve_views_warp(
     """Warp-engine multi-view fusion, views in order. roi is an inclusive
     (x0, y0, x1, y1) applied as the reference's ROI Carve
     (voxel_carver.cc:394-413). The engine is chosen by the image height
-    before any launch (module docstring); a kernel that fails raises."""
+    before any launch (``warp_carve_centers``); a kernel that fails
+    raises."""
     w2c, principal_point, focal_length, sdf_images = _batched(
         w2c, principal_point, focal_length, sdf_images)
     dev = state.sdf.device
-    args = (grid.axis_centers_t(0, dev), grid.axis_centers_t(1, dev),
-            grid.axis_centers_t(2, dev), w2c, principal_point, focal_length,
-            sdf_images, opt, linear, roi)
-    if _fused_kernel_takes(dev, sdf_images.shape[1]):
-        sdf, un = warp_fused.warp_fuse_planes(state.sdf, state.update_num,
-                                              *args)
-    else:
-        sdf, un = warp_fold(state.sdf, state.update_num, *args, interp_rows)
+    sdf, un = warp_carve_centers(
+        state.sdf, state.update_num,
+        *(grid.axis_centers_t(a, dev) for a in range(3)), w2c,
+        principal_point, focal_length, sdf_images, opt, linear, roi)
     return VoxelGridState(sdf=sdf, update_num=un)
 
 
@@ -254,16 +305,27 @@ def carve_views_warp_ortho(
     go through the exact engine (reference semantics,
     voxel_carver.cc:442-491) instead."""
     w2c, sdf_images = _batched(w2c, sdf_images)
-    coupling = float(w2c[:, 1, 1].abs().min())
-    if coupling < _ORTHO_V_COUPLING_MIN:
-        LOGW("carve_views_warp_ortho: |w2c[1,1]| = %.2e decouples image v "
-             "from world y; falling back to the exact engine", coupling)
+    if ortho_warp_views(w2c) is None:
         zero2 = torch.zeros((w2c.shape[0], 2), dtype=torch.float32,
                             device=w2c.device)
         return carve_views(state, grid, w2c, zero2, zero2, sdf_images,
                            roi=roi, opt=opt, projection="ortho")
     return _carve_views_warp_ortho(state, grid, w2c, sdf_images, opt, linear,
                                    roi)
+
+
+def ortho_warp_views(w2c: torch.Tensor):
+    """The engine decision for orthographic views ``w2c`` f32[V, 4, 4],
+    made in this one place for a dense and a block-sharded state alike:
+    ``ortho_homography(w2c)`` where the warp engine can take the batch,
+    None (with a warning) where a view decouples image v from world y and
+    the batch must go through the exact engine."""
+    coupling = float(w2c[:, 1, 1].abs().min())
+    if coupling < _ORTHO_V_COUPLING_MIN:
+        LOGW("carve_views_warp_ortho: |w2c[1,1]| = %.2e decouples image v "
+             "from world y; falling back to the exact engine", coupling)
+        return None
+    return ortho_homography(w2c)
 
 
 def ortho_homography(w2c: torch.Tensor):
@@ -287,7 +349,6 @@ def _carve_views_warp_ortho(
     opt: VoxelUpdateOption = VoxelUpdateOption(),
     linear: bool = True,
     roi: Optional[Tuple[int, int, int, int]] = None,
-    sampler: RowSampler = interp_rows,
 ) -> VoxelGridState:
     """Warp-engine multi-view fusion for ORTHOGRAPHIC cameras.
 
@@ -300,18 +361,13 @@ def _carve_views_warp_ortho(
     z, affine in the voxel index, is evaluated as one broadcast
     expression per view by the two-pass engine, and carried as four more
     coefficients per view by the fused warp kernel. The engine is chosen
-    by the image height before any launch, as in ``carve_views_warp``;
-    ``sampler`` is the two-pass engine's row sampler (kernel C on a CUDA
-    state)."""
+    by the image height before any launch, as in ``carve_views_warp``."""
     dev = state.sdf.device
     w2c_synth, zero2, one2, z_rows = ortho_homography(w2c)
-    args = (state.sdf, state.update_num, grid.axis_centers_t(0, dev),
-            grid.axis_centers_t(1, dev), grid.axis_centers_t(2, dev),
-            w2c_synth, zero2, one2, sdf_images, opt, linear, roi)
-    if _fused_kernel_takes(dev, sdf_images.shape[1]):
-        sdf, un = warp_fused.warp_fuse_planes(*args, ortho_rows=z_rows)
-    else:
-        sdf, un = warp_fold(*args, sampler, z_rows=z_rows)
+    sdf, un = warp_carve_centers(
+        state.sdf, state.update_num,
+        *(grid.axis_centers_t(a, dev) for a in range(3)), w2c_synth, zero2,
+        one2, sdf_images, opt, linear, roi, z_rows=z_rows)
     return VoxelGridState(sdf=sdf, update_num=un)
 
 
@@ -361,24 +417,10 @@ def carve_views_warp_blocked(
     ``carve_views_warp`` call, which returns new tensors."""
     w2c, principal_point, focal_length, sdf_images = _batched(
         w2c, principal_point, focal_length, sdf_images)
-    nz = state.sdf.shape[0]
-    if nz <= chunk_nz:
-        return carve_views_warp(state, grid, w2c, principal_point,
-                                focal_length, sdf_images, opt, linear, roi)
-    chunk_nz = _snap_chunk_nz(nz, chunk_nz)
     dev = state.sdf.device
-    cx, cy, cz = (grid.axis_centers_t(a, dev) for a in range(3))
-    fused = _fused_kernel_takes(dev, sdf_images.shape[1])
-    for z_lo in range(0, nz, chunk_nz):
-        s = state.sdf[z_lo:z_lo + chunk_nz]
-        u = state.update_num[z_lo:z_lo + chunk_nz]
-        args = (s, u, cx, cy, cz[z_lo:z_lo + chunk_nz].contiguous(), w2c,
-                principal_point, focal_length, sdf_images, opt, linear, roi)
-        if fused:
-            warp_fused.warp_fuse_planes(*args, out=(s, u))
-        else:
-            new_s, new_u = warp_fold(*args, interp_rows)
-            s.copy_(new_s)
-            u.copy_(new_u)
-            del new_s, new_u
-    return state
+    sdf, un = warp_carve_centers(
+        state.sdf, state.update_num,
+        *(grid.axis_centers_t(a, dev) for a in range(3)), w2c,
+        principal_point, focal_length, sdf_images, opt, linear, roi,
+        chunk_nz=chunk_nz)
+    return VoxelGridState(sdf=sdf, update_num=un)

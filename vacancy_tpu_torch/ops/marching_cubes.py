@@ -281,8 +281,28 @@ def marching_cubes_slab(
     else:
         raise ValueError(f"unknown edge mode {edge!r}")
 
-    centers = (grid.axis_centers_t(0, dev), grid.axis_centers_t(1, dev),
-               cz_sl)
+    return _slab_emit(
+        sl_sdf, sl_un,
+        (grid.axis_centers_t(0, dev), grid.axis_centers_t(1, dev), cz_sl),
+        slice_lo, own_lo, own_hi, float(iso_level), linear_interp)
+
+
+def _slab_emit(
+    sl_sdf: torch.Tensor,  # f32[s_nz, ny, nx]: the slab with its halo planes
+    sl_un: torch.Tensor,  # i32[s_nz, ny, nx]
+    centers: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # cx, cy, cz_sl
+    slice_lo: int,  # local plane i is global z = slice_lo - 1 + i
+    own_lo: int,
+    own_hi: int,
+    iso_level: float,
+    linear_interp: bool,
+):
+    """The slab-emission core shared by the z-slab routine above and the
+    z-sharded routine (``parallel/sharded.py``, whose blocks arrive with
+    their halo planes exchanged): see ``marching_cubes_slab`` for the
+    ownership rule and the returned tuple."""
+    s_nz, ny, nx = sl_sdf.shape
+    dev = sl_sdf.device
     cube_valid, case, vflags, pvars = _mc_geometry(
         sl_sdf, sl_un, centers, float(iso_level), linear_interp)
 

@@ -4,6 +4,7 @@ reference's examples.cc).
     python -m vacancy_tpu_torch.pipeline turntable --n 512 --views 36 --out DIR
     python -m vacancy_tpu_torch.pipeline sweep --n 1024 --views 100 --out DIR
     python -m vacancy_tpu_torch.pipeline bunny --out DIR   # needs VACANCY_DATA
+    python -m vacancy_tpu_torch.pipeline sweep --n 1024 --views 100 --mesh-shape 4
 
 ``turntable`` (BASELINE config 4) renders silhouettes of a sphere-union
 blob from ``--views`` orbiting cameras, turns them into truncated 2D SDFs,
@@ -16,6 +17,17 @@ times of carve and extract are reported. ``bunny`` is the examples.cc
 sequence on the six views under ``VACANCY_DATA``, with ``--checkpoint``
 and ``--resume``. Each prints one JSON line. The device defaults to
 ``cuda``; ``--device cpu`` runs the kernels' plain versions instead.
+
+``turntable --sharded`` and ``sweep`` (unless ``--no-sharded``) cut the
+grid into blocks over a block mesh (``parallel/``): one block per card by
+default, so a single card runs unsharded and says so; ``--mesh-shape
+Z[,Y[,X]]`` places that many blocks round-robin over the visible cards
+(all on the one card where there is one; with ``--device cpu``, CPU
+blocks), ``auto`` picks the shape for one block per card. With
+``--coordinator HOST:PORT --num-processes N --process-id R`` the same
+``sweep`` command runs once per process and the mesh spans them:
+extraction then goes through piece files under ``--piece-dir`` and
+process 0 assembles.
 """
 
 from __future__ import annotations
@@ -24,7 +36,7 @@ import argparse
 import json
 import os
 import time
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +57,18 @@ from .metrics import bbox_diagonal, chamfer_distance, hausdorff_distance
 from .ops.fusion_warp import carve_views_warp, carve_views_warp_blocked
 from .ops.marching_cubes import extract_mesh
 from .ops.sdf2d import make_signed_distance_field, signed_distance_to_color
+from .parallel import (
+    BlockMesh,
+    carve_views_warp_sharded,
+    extract_mesh_sharded,
+    grid_sharding,
+    initialize_distributed,
+    make_device_mesh,
+    pad_bbox_for_sharding,
+    pick_mesh_shape,
+    pick_transport,
+)
+from .parallel.mesh_utils import default_devices, rank_and_world
 from .synthetic import blob_spheres, render_silhouettes, turntable_cameras
 from .utils import LOGI, Timer, zfill
 from .utils.timing import trace as profiler_trace
@@ -131,27 +155,98 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+MeshShape = Union[None, str, Tuple[int, ...]]
+
+
+def _local_devices(device: torch.device):
+    """This process's block devices: the named one (``cpu``, ``cuda:1``),
+    or for plain ``cuda`` every card the process may use."""
+    if device.type == "cuda" and device.index is None:
+        return default_devices(*rank_and_world())
+    return [device]
+
+
+def block_mesh(shape_zyx, sharded: bool, mesh_shape: MeshShape,
+               device: torch.device) -> Optional[BlockMesh]:
+    """The block mesh a ``--sharded`` run cuts its grid over, or None for
+    an unsharded run. Without a shape: one block per block-holder (process
+    x card) along z, and None where there is a single holder, as the JAX
+    package runs unsharded on one device. ``"auto"``:
+    ``pick_mesh_shape`` for that many blocks. An explicit shape: that
+    many blocks, placed round-robin over this process's devices (all on
+    the one card where there is one)."""
+    if not sharded:
+        return None
+    _, world = rank_and_world()
+    local = _local_devices(device)
+    holders = world * len(local)
+    if mesh_shape is None or mesh_shape == "auto":
+        if holders == 1:
+            return None
+        mesh_shape = ((holders,) if mesh_shape is None
+                      else pick_mesh_shape(shape_zyx, holders))
+    total = int(np.prod(mesh_shape))
+    if total % world:
+        raise ValueError(f"mesh shape {mesh_shape}: {total} blocks do not "
+                         f"divide over {world} processes")
+    per_rank = total // world
+    return make_device_mesh(
+        shape=tuple(mesh_shape),
+        devices=[local[i % len(local)] for i in range(per_rank)])
+
+
+def _sync_all(device: torch.device, mesh: Optional[BlockMesh]) -> None:
+    devices = {device} if mesh is None else {
+        d for d in mesh.devices if d is not None}
+    for d in devices:
+        _sync(d)
+
+
+def _mesh_report(mesh: Optional[BlockMesh], device: torch.device) -> dict:
+    """The JAX lines' ``sharded`` and ``devices`` keys, plus the mesh's
+    shape and how its halo slices travel."""
+    _, world = rank_and_world()
+    return {
+        "sharded": mesh is not None,
+        "devices": world * len(_local_devices(device)),
+        "mesh_shape": None if mesh is None else list(mesh.axis_sizes),
+        "transport": None if mesh is None else pick_transport(mesh).name,
+    }
+
+
 def run_turntable(
     n: int = 256,
     n_views: int = 36,
     tsdf: bool = True,
     out_dir: Optional[str] = None,
     device="cuda",
+    sharded: bool = False,
+    mesh_shape: MeshShape = None,
 ) -> dict:
-    """Synthetic turntable blob at n^3 on one device. carve_s is the
-    second (warm) fusion of every view; the first call builds the
-    kernels. Both timings end in a device synchronize."""
+    """Synthetic turntable blob at n^3. carve_s is the second (warm)
+    fusion of every view; the first call builds the kernels. Both timings
+    end in a device synchronize. ``sharded`` / ``mesh_shape``: over a
+    block mesh of this process (``block_mesh``)."""
     device = torch.device(device)
     grid, opt, cams, sdf_images = turntable_inputs(n, n_views, tsdf, device)
     linear = opt.sdf_interp == SdfInterpolation.BILINEAR
+    mesh_b = block_mesh(grid.shape_zyx, sharded, mesh_shape, device)
+    views = (cams.w2c, cams.principal_point, cams.focal_length, sdf_images)
+    if mesh_b is not None:
+        # axes need not divide the grid extent (pick_mesh_shape's
+        # contract): pad here, as run_sweep does
+        grid = pad_bbox_for_sharding(grid, mesh_b)
+        sharding = grid_sharding(mesh_b)
 
     def carve():
-        st = carve_views_warp(
-            VoxelGridState.create(grid, device), grid, cams.w2c,
-            cams.principal_point, cams.focal_length, sdf_images,
-            opt=opt, linear=linear,
-        )
-        _sync(device)
+        if mesh_b is not None:
+            st = carve_views_warp_sharded(
+                VoxelGridState.create(grid, sharding=sharding), grid, *views,
+                opt=opt, linear=linear, mesh=mesh_b)
+        else:
+            st = carve_views_warp(VoxelGridState.create(grid, device), grid,
+                                  *views, opt=opt, linear=linear)
+        _sync_all(device, mesh_b)
         return st
 
     carve()  # warm-up (first use builds the kernels)
@@ -160,8 +255,11 @@ def run_turntable(
     carve_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    mesh = extract_mesh(state, grid)
-    _sync(device)
+    if mesh_b is not None:
+        mesh = extract_mesh_sharded(state, grid, mesh_b)
+    else:
+        mesh = extract_mesh(state, grid)
+    _sync_all(device, mesh_b)
     extract_s = time.perf_counter() - t0
     LOGI("turntable %d^3 x %d views: carve %.4f s, extract %.4f s",
          n, n_views, carve_s, extract_s)
@@ -175,6 +273,7 @@ def run_turntable(
         "extract_s": extract_s,
         "mc_vertices": mesh.num_vertices,
         "mc_faces": mesh.num_faces,
+        **_mesh_report(mesh_b, device),
     }
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -191,38 +290,60 @@ def _device_name(device: torch.device) -> str:
 def run_sweep(
     n: int = 1024,
     n_views: int = 100,
-    sharded: bool = False,
+    sharded: bool = True,
     extract: bool = True,
     out_dir: Optional[str] = None,
     device="cuda",
+    piece_dir: Optional[str] = None,
+    mesh_shape: MeshShape = None,
 ) -> dict:
-    """BASELINE config 5 as one command on one device: N^3 (default
-    1024^3) TSDF sweep over 100+ synthetic turntable views, z-chunked and
-    in place (``carve_views_warp_blocked``; the per-view fields of the
-    whole grid would exceed the card's memory), then extraction through
-    the fused marching-cubes kernel.
+    """BASELINE config 5 as one command: N^3 (default 1024^3) TSDF sweep
+    over 100+ synthetic turntable views, sharded over a block mesh
+    (``block_mesh``: one block per card, or ``mesh_shape``), or on a
+    single card z-chunked and in place (``carve_views_warp_blocked``; the
+    per-view fields of the whole grid would exceed the card's memory),
+    then extraction through the fused marching-cubes kernel, block by
+    block with a one-voxel halo where sharded.
+
+    Several processes: run the same command per process after
+    ``initialize_distributed``; extraction then writes per-block pieces
+    under ``piece_dir`` (a directory every process reaches) and process 0
+    assembles.
 
     cold = the first call, which builds the kernels; warm = steady state
     (the headline fusions/s). Both are recorded, so the result shows the
     first-run cost and the throughput a long sweep sees. Every timing ends
     in a device synchronize. With ``out_dir`` the mesh is written to
     ``out_dir/sweep_{n}.ply`` (binary)."""
-    if sharded:
-        raise NotImplementedError(
-            "run_sweep(sharded=True) waits for the port of parallel/ "
-            "(ROADMAP Queue 1: parallel/ -> torch.distributed)")
     device = torch.device(device)
     grid, opt, cams, sdf_images = turntable_inputs(n, n_views, True, device)
     linear = opt.sdf_interp == SdfInterpolation.BILINEAR
+    mesh_b = block_mesh(grid.shape_zyx, sharded, mesh_shape, device)
+    views = (cams.w2c, cams.principal_point, cams.focal_length, sdf_images)
+    if mesh_b is not None:
+        grid = pad_bbox_for_sharding(grid, mesh_b)
+        sharding = grid_sharding(mesh_b)
 
     def do_carve():
-        state = carve_views_warp_blocked(
-            VoxelGridState.create(grid, device), grid, cams.w2c,
-            cams.principal_point, cams.focal_length, sdf_images,
-            opt=opt, linear=linear,
-        )
-        _sync(device)
+        if mesh_b is not None:
+            state = carve_views_warp_sharded(
+                VoxelGridState.create(grid, sharding=sharding), grid, *views,
+                opt=opt, linear=linear, mesh=mesh_b)
+        else:
+            state = carve_views_warp_blocked(
+                VoxelGridState.create(grid, device), grid, *views, opt=opt,
+                linear=linear)
+        _sync_all(device, mesh_b)
         return state
+
+    def do_extract(state):
+        if mesh_b is not None:
+            mesh = extract_mesh_sharded(state, grid, mesh_b,
+                                        piece_dir=piece_dir)
+        else:
+            mesh = extract_mesh(state, grid)
+        _sync_all(device, mesh_b)
+        return mesh
 
     t0 = time.perf_counter()
     state = do_carve()
@@ -238,30 +359,27 @@ def run_sweep(
         "config": "baseline-5-sweep",
         "grid": list(grid.voxel_num),
         "views": n_views,
-        "sharded": False,
         "device": _device_name(device),
         "carve_cold_s": carve_cold_s,
         "carve_s": carve_s,
         "fusions_per_s": grid.num_voxels * n_views / carve_s,
+        **_mesh_report(mesh_b, device),
     }
     if extract:
         t0 = time.perf_counter()
-        mesh = extract_mesh(state, grid)
-        _sync(device)
+        mesh = do_extract(state)
         extract_cold_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        mesh = extract_mesh(state, grid)
-        _sync(device)
-        out.update(
-            extract_cold_s=extract_cold_s,
-            extract_s=time.perf_counter() - t0,
-            mc_vertices=mesh.num_vertices,
-            mc_faces=mesh.num_faces,
-        )
-        if out_dir:
-            os.makedirs(out_dir, exist_ok=True)
-            mesh.write_ply(os.path.join(out_dir, f"sweep_{n}.ply"),
-                           binary=True)
+        mesh = do_extract(state)
+        out.update(extract_cold_s=extract_cold_s,
+                   extract_s=time.perf_counter() - t0)
+        if mesh is not None:  # None on every process but process 0
+            out.update(mc_vertices=mesh.num_vertices,
+                       mc_faces=mesh.num_faces)
+            if out_dir:
+                os.makedirs(out_dir, exist_ok=True)
+                mesh.write_ply(os.path.join(out_dir, f"sweep_{n}.ply"),
+                               binary=True)
     return out
 
 
@@ -448,16 +566,35 @@ def main(argv=None) -> dict:
     t = sub.add_parser("turntable", help="synthetic turntable at N^3")
     t.add_argument("--n", type=int, default=256)
     t.add_argument("--views", type=int, default=36)
+    t.add_argument("--sharded", action="store_true",
+                   help="cut the grid over a block mesh (parallel/)")
     t.add_argument("--out", default=None)
 
     s = sub.add_parser(
         "sweep", help="BASELINE config 5: 1024^3, 100+ views, one card")
     s.add_argument("--n", type=int, default=1024)
     s.add_argument("--views", type=int, default=100)
-    s.add_argument("--sharded", action="store_true",
-                   help="not ported yet: waits for parallel/")
+    s.add_argument("--no-sharded", action="store_true",
+                   help="force the single-card z-chunked path (the default "
+                   "is one block per card: a single card runs unsharded "
+                   "unless --mesh-shape is given)")
     s.add_argument("--no-extract", action="store_true")
     s.add_argument("--out", default=None)
+    for sp in (t, s):
+        sp.add_argument(
+            "--mesh-shape", default=None, metavar="Z[,Y[,X]]|auto",
+            help="block mesh shape for sharded runs, e.g. 4 (z blocks), "
+            "2,4 (z,y blocks), 2,2,2, or 'auto' (z first, then x, then "
+            "y); blocks are placed round-robin over the visible cards. "
+            "Default: one block per card along z")
+    s.add_argument("--piece-dir", default=None,
+                   help="directory every process reaches, for the per-block "
+                   "mesh pieces of a multi-process run")
+    s.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="process 0's address: run this command once per "
+                   "process with its --process-id")
+    s.add_argument("--num-processes", type=int, default=None)
+    s.add_argument("--process-id", type=int, default=None)
     for sp in (b, t, s):
         sp.add_argument("--device", default="cuda", help="torch device; "
                         "cpu runs the kernels' plain versions")
@@ -465,6 +602,12 @@ def main(argv=None) -> dict:
                         help="write a torch.profiler trace to DIR/trace.json")
 
     args = p.parse_args(argv)
+    mesh_shape = getattr(args, "mesh_shape", None)
+    if mesh_shape and mesh_shape != "auto":
+        mesh_shape = tuple(int(x) for x in mesh_shape.split(","))
+    if getattr(args, "coordinator", None) is not None:
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id)
     with profiler_trace(args.profile):
         if args.cmd == "bunny":
             res = args.resolution
@@ -479,13 +622,17 @@ def main(argv=None) -> dict:
                 device=args.device,
             )
         elif args.cmd == "turntable":
-            out = run_turntable(n=args.n, n_views=args.views,
-                                out_dir=args.out, device=args.device)
+            out = run_turntable(
+                n=args.n, n_views=args.views, out_dir=args.out,
+                device=args.device,
+                sharded=args.sharded or bool(mesh_shape),
+                mesh_shape=mesh_shape or None)
         else:
             out = run_sweep(n=args.n, n_views=args.views,
-                            sharded=args.sharded,
+                            sharded=not args.no_sharded,
                             extract=not args.no_extract, out_dir=args.out,
-                            device=args.device)
+                            device=args.device, piece_dir=args.piece_dir,
+                            mesh_shape=mesh_shape or None)
     print(json.dumps(out, default=str))
     return out
 
