@@ -11,6 +11,14 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      bitwise): 128^3 x 8 views for MAX/WAVG x NN/bilinear and ROI +
      outside=MAX; an unaligned 72x80x96 grid; the bench shape 512^3 x 24
      views with random-normal images, timed against the plain version.
+     Then the shapes that straddle the kernel's tiling (a CTA owns 32 x by
+     64 y of one plane and holds 384 rows of the pass-1 intermediate): ny
+     under one y-tile, ny two y-tiles and two rows with nx 33, a ROI that
+     leaves a y-tile wholly outside the image with outside = NONE and =
+     MAX, and views of 1800 rows whose tapped band is nearly the whole
+     image (row chunks); in place == out of place; one line with the
+     registers and shared memory of the kernel's variants from the build
+     log and the CTAs per SM they allow.
   4. fused MC kernel vs its plain version (counts, the four streams and
      the assembled meshes byte-identical): the 256^3 sphere (r = 0.8) and
      a random state with invalid voxels, timed at 256^3.
@@ -46,10 +54,14 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      camera on the exact engine (neither counter moves); the exact engine
      vs the warp engine at 256^3 x 8 turntable views (the JAX package's
      test_warp_close_to_exact bar).
- 10. the probe kernel vs its plain version, bitwise; its first launch timed.
- 11. the MC kernel's passes alone: the scan vs torch.cumsum; the count and
-     emit passes vs boolean-mask compaction at flag densities of about 0,
-     0.02, 0.5 and 1.
+ 10. the probe kernel vs its plain version, bitwise; its first launch
+     timed; the device durations of its kernel and of torch.mul's kernel
+     (torch.profiler) beside the host-bracketed means.
+ 11. the MC kernel's passes alone: the scan vs torch.cumsum at 1, 2100,
+     131,072 and 1,048,576 tiles, 20 times at the largest with identical
+     bytes every time; the count and emit passes vs boolean-mask compaction
+     at flag densities of about 0, 0.02, 0.5 and 1 and on a state with one
+     inside voxel, whose flags lie in two tiles.
  12. the sweep at full size: `pipeline sweep --n 1024 --views 100` in
      process (counters reset just before, read just after: the fused warp
      kernel once per z-chunk and carve, MC once per extract); the PLY reads
@@ -59,7 +71,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      of the fused state (the plain version's dense temporaries do not fit
      1024^3), and on the whole grid the fused engine's mesh == the z-slab
      torch routine's byte for byte; the native face expansion == numpy byte
-     for byte on the whole mesh, both timed; the scan pass timed at 1024^3.
+     for byte on the whole mesh, both timed; the scan pass timed at 1024^3;
+     the fused warp kernel's time per chunk and the MC passes' times, each
+     beside the parent's, its bound and its launches on the sweep; the
+     share of non-empty tiles.
  13. the z-chunked two-pass engine: 1024^3 x 2 views of 3840 x 2160 through
      carve_views_warp_blocked (interp_rows twice per view and chunk); peak
      memory under the unchunked estimate; one chunk == the plain fold.
@@ -224,6 +239,40 @@ def phase_build():
     return secs
 
 
+def _kernel_usage() -> dict:
+    """{mangled kernel name: (registers, static shared-memory bytes)} from
+    the build log's ``-Xptxas -v`` lines."""
+    import re
+
+    from vacancy_tpu_torch import _kernels
+
+    usage, name = {}, None
+    for ln in _kernels.build_log().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            usage[name] = (int(m.group(1)), int(smem.group(1)) if smem else 0)
+    return usage
+
+
+def _usage_of(substring: str):
+    """(most registers, most static shared memory) over the kernels whose
+    mangled name holds ``substring``."""
+    got = [v for k, v in _kernel_usage().items() if substring in k]
+    _require(bool(got), f"no kernel named *{substring}* in the build log")
+    return max(r for r, _ in got), max(m for _, m in got)
+
+
+def _ctas_per_sm(registers: int, threads: int) -> int:
+    """CTAs of ``threads`` threads an SM's 65,536 registers hold (a warp's
+    registers are allocated in units of 256: 8 per thread)."""
+    per_thread = -(-registers // 8) * 8
+    return min(32, 2048 // threads, 65536 // (per_thread * threads))
+
+
 def _turntable_case(shape, n_views, device):
     from vacancy_tpu_torch.grid import GridSpec
     from vacancy_tpu_torch.ops.sdf2d import make_signed_distance_field
@@ -291,6 +340,8 @@ def phase_warp(device):
         max_err = max(max_err, float((ks - ps).abs().nan_to_num(0).max()))
         _phase("warp", f"{name}: bitwise equal (fused {fused:.3f} of voxels)")
 
+    max_err = max(max_err, _warp_tiling_edges(device))
+
     # (c) the bench's shape: 512^3 x 24 views, MAX, random-normal images
     from vacancy_tpu_torch.bench import build_case
 
@@ -313,6 +364,96 @@ def phase_warp(device):
            f"ms ({nf / ms / 1e6:.3f} Gfusions/s), plain {plain_ms:.3f} ms, "
            f"bound {bound[0]:.3f} ms by {bound[1]}")
     return max_err, ms, plain_ms, bound
+
+
+def _warp_tiling_edges(device) -> float:
+    """Kernel A against plain on shapes that straddle its tiling, in place
+    against out of place, and its registers and shared memory."""
+    import numpy as np
+    import torch
+
+    from vacancy_tpu_torch import _kernels
+    from vacancy_tpu_torch import config as cfg
+    from vacancy_tpu_torch.grid import VoxelGridState
+    from vacancy_tpu_torch.ops import warp_fused
+
+    wavg = dict(voxel_update=cfg.VoxelUpdate.WEIGHTED_AVERAGE,
+                use_truncation=True, truncation_band=0.05)
+    top = (0, 30, 319, 110)  # image rows 30..110: part of the grid's height
+    cases = [
+        ("6x37x40 (ny under one y-tile) max nn", (6, 37, 40), {}, False,
+         None, 240),
+        ("5x130x33 (two y-tiles and two rows, nx 33) wavg bilinear",
+         (5, 130, 33), wavg, True, None, 240),
+        ("8x256x48 roi rows 30..110 outside=none", (8, 256, 48), wavg, True,
+         top, 240),
+        ("8x256x48 roi rows 30..110 outside=max", (8, 256, 48),
+         dict(wavg, update_outside=cfg.UpdateOutsideImage.MAX), True, top,
+         240),
+        ("11x17x45 x 1800 rows (band in row chunks) wavg bilinear",
+         (11, 17, 45), dict(wavg, truncation_band=0.4,
+                            update_outside=cfg.UpdateOutsideImage.MAX),
+         True, None, 1800),
+        ("11x17x45 x 1800 rows (band in row chunks) max nn", (11, 17, 45),
+         {}, False, None, 1800),
+    ]
+    max_err = 0.0
+    for name, shape, kw, linear, roi, rows in cases:
+        grid, cams, imgs = _turntable_case(shape, 5, device)
+        pp, fl = cams.principal_point, cams.focal_length
+        if rows != imgs.shape[1]:
+            # the same cameras seen through taller random images: v scales
+            scale = rows / imgs.shape[1]
+            rng = np.random.default_rng(4)
+            imgs = torch.from_numpy(rng.normal(
+                size=(5, rows, 360)).astype(np.float32)).to(device)
+            pp, fl = pp.clone(), fl.clone()
+            pp[:, 1] *= scale
+            fl[:, 1] *= scale
+        opt = cfg.VoxelUpdateOption(**kw)
+        st = VoxelGridState.create(grid, device)
+        centers = [grid.axis_centers_t(a, device) for a in range(3)]
+        a = (st.sdf, st.update_num, *centers, cams.w2c, pp, fl, imgs, opt,
+             linear, roi)
+        ks, ku = warp_fused.warp_fuse_planes(*a)
+        ps, pu = warp_fused.warp_fuse_planes_plain(*a)
+        # once more, on the fused state, in place
+        a2 = (ks.clone(), ku.clone(), *a[2:])
+        warp_fused.warp_fuse_planes(*a2, out=(a2[0], a2[1]))
+        ks, ku = warp_fused.warp_fuse_planes(ks, ku, *a[2:])
+        ps, pu = warp_fused.warp_fuse_planes_plain(ps, pu, *a[2:])
+        torch.cuda.synchronize()
+        _require(torch.equal(ku, pu) and torch.equal(_bits(ks), _bits(ps)),
+                 f"warp {name}: kernel != plain")
+        _require(torch.equal(a2[1], ku)
+                 and torch.equal(_bits(a2[0]), _bits(ks)),
+                 f"warp {name}: in place != out of place")
+        ty = warp_fused.TILE_Y
+        touched = [round(float((pu[:, y:y + ty] != 0).float().mean()), 3)
+                   for y in range(0, shape[1], ty)]
+        if roi is not None and "update_outside" not in kw:
+            _require(min(touched) == 0.0 and max(touched) > 0.05,
+                     f"warp {name}: a y-tile should lie wholly outside the "
+                     f"ROI, touched {touched}")
+        else:
+            _require(max(touched) > 0.05, f"warp {name}: nothing fused")
+        max_err = max(max_err, float((ks - ps).abs().nan_to_num(0).max()))
+        _phase("warp", f"{name}: bitwise equal, in place == out of place "
+               f"(touched {touched} of the voxels of each y-tile)")
+    lib = _kernels.load()
+    regs, smem = _usage_of("warp_fused_kernel")
+    _require(regs == lib.vt_warp_tiling(4) and smem == lib.vt_warp_tiling(3),
+             "the build log and the loaded library disagree on kernel A")
+    rows = warp_fused.INTER_ROWS_CAP
+    variants = sum("warp_fused_kernel" in k for k in _kernel_usage())
+    _phase("warp", f"build log, the kernel's {variants} variants: at most "
+           f"{regs} registers and {smem} bytes of static shared memory; dynamic "
+           f"{240 * warp_fused.TILE_X * 4} bytes at 240 rows, "
+           f"{rows * warp_fused.TILE_X * 4} at the cap of {rows}: "
+           f"{lib.vt_warp_ctas_per_sm(240)} and "
+           f"{lib.vt_warp_ctas_per_sm(rows)} CTAs of {warp_fused.THREADS} "
+           f"threads per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    return max_err
 
 
 def _random_state(shape, device, seed=5):
@@ -919,9 +1060,49 @@ def phase_probe(device):
     bound = _bound(_nbytes(x, x), x.numel())
     _phase("probe", f"f32 {list(x.shape)} * 2: kernel == plain bitwise; "
            f"first launch (library already built) {first_s * 1e3:.3f} ms; "
-           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mul "
-           f"{lib_ms:.4f} ms, bound {bound[0]:.2e} ms by {bound[1]}")
+           f"100 host calls between two events, per call: kernel {ms:.4f} "
+           f"ms, plain {plain_ms:.4f} ms, torch.mul {lib_ms:.4f} ms (these "
+           f"read the host's launch rate), bound {bound[0]:.2e} ms by "
+           f"{bound[1]}")
+    # what the card itself spends on each: the kernels' own durations
+    dev = {}
+    for name, fn, key in (
+        ("probe", lambda: bench.probe_scale(x), "probe_scale_kernel"),
+        ("torch.mul", lambda: torch.mul(x, 2.0), "elementwise"),
+    ):
+        spans = _kernel_spans(fn, 100)
+        hit = [sp for sp in spans if key in sp[0]]
+        _require(len(hit) == 1 and hit[0][1] > 0,
+                 f"probe: expected one kernel *{key}* under the profiler, "
+                 f"got {spans}")
+        dev[name] = hit[0][2] / hit[0][1] * 1e-3
+    _phase("probe", f"device durations (torch.profiler, mean of up to 100 "
+           f"launches each): "
+           f"probe_scale_kernel {dev['probe'] * 1e3:.3f} us, torch.mul's "
+           f"kernel {dev['torch.mul'] * 1e3:.3f} us")
     return float((k - p).abs().max()), ms, plain_ms, lib_ms, bound
+
+
+def _kernel_spans(fn, iters: int):
+    """[(kernel name, launches, total device microseconds)] of ``iters``
+    calls of ``fn`` under torch.profiler, after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            spans.append((e.key, e.count,
+                          float(e.self_cuda_time_total if us is None else us)))
+    return spans
 
 
 def _density_state(shape, density, device, seed=9):
@@ -958,7 +1139,7 @@ def phase_mc_passes(device):
 
     rng = np.random.default_rng(11)
     scan_err = 0
-    for nz, tpp in ((300, 7), (1, 1), (512, 256)):
+    for nz, tpp in ((1, 1), (300, 7), (512, 256), (1024, 1024)):
         counts = torch.from_numpy(rng.integers(
             0, mc_fused.TILE + 1, size=(nz * tpp, 4)).astype(np.int32)
         ).to(device)
@@ -969,8 +1150,17 @@ def phase_mc_passes(device):
                      for x, y in zip(k, p)),
                  f"mc scan {nz} planes x {tpp} tiles != torch.cumsum")
         scan_err = max(scan_err, _scan_err(k, p))
-    _phase("mc-passes", "scan pass alone == torch.cumsum (offsets, totals, "
-           "plane counts) for 300x7, 1x1 and 512x256 tiles of random counts")
+    # the largest again and again: blocks that waited on one another in the
+    # wrong order would show as a rare difference
+    for _ in range(20):
+        again = mc_fused.mc_scan(counts, tpp)
+        torch.cuda.synchronize()
+        _require(all(torch.equal(x, y) for x, y in zip(again, k)),
+                 "mc scan: two runs on the same counts differ")
+    _phase("mc-passes", f"scan pass alone == torch.cumsum (offsets, totals, "
+           f"plane counts) for 1, 2100, 131072 and 1048576 tiles of random "
+           f"counts ({mc_fused.scan_blocks(nz * tpp)} blocks at the "
+           f"largest); 20 more runs there, identical bytes every time")
     shape = (64, 96, 128)
     for density in (0.0, 0.02, 0.5, 1.0):
         grid, st = _density_state(shape, density, device)
@@ -990,6 +1180,34 @@ def phase_mc_passes(device):
                f"sums, emit == mask compaction (flag densities x "
                f"{got[0]:.3f} y {got[1]:.3f} z {got[2]:.3f} cubes "
                f"{got[3]:.3f})")
+    # one voxel below the iso level in a field above it: every flag lies in
+    # two tiles (its own and the one below it) of the 768
+    sdf, un = _empty_planes(shape, device)
+    sdf.fill_(1.0)
+    un.fill_(1)
+    sdf[10, 12, 45] = -0.5
+    a = (sdf, un, *(grid.axis_centers_t(i, device) for i in range(3)))
+    counts = mc_fused.mc_tile_counts(*a)
+    _require(torch.equal(counts, mc_fused.mc_tile_counts_plain(*a[:2])),
+             "mc count pass on the one-voxel state != plain")
+    busy = int((counts.sum(dim=1) > 0).sum())
+    _require(busy == 2, f"one inside voxel: {busy} non-empty tiles, not 2")
+    for linear in (True, False):
+        _require_same_streams(
+            mc_fused.marching_cubes_fused(*a, linear_interp=linear),
+            mc_fused.mc_streams_plain(*a, linear_interp=linear),
+            f"mc emit on the one-voxel state linear={linear}")
+    _phase("mc-passes", f"{shape} one inside voxel: {busy} of "
+           f"{counts.shape[0]} tiles non-empty, count and emit == plain "
+           f"({int(counts.sum())} flags)")
+    usage = {name: _usage_of(key)[0] for name, key in (
+        ("count", "mc_count_kernelILb0"),
+        ("count with windows", "mc_count_kernelILb1"),
+        ("emit", "mc_emit_kernelILb0"),
+        ("emit with windows", "mc_emit_kernelILb1"))}
+    _phase("mc-passes", "build log: " + ", ".join(
+        f"{name} {regs} registers ({_ctas_per_sm(regs, 256)} CTAs of 256 "
+        f"threads per SM)" for name, regs in usage.items()))
     return scan_err
 
 
@@ -1029,6 +1247,20 @@ def _reset_counters():
 
 def _read_counters(counters) -> dict:
     return {name: c.launches for name, c in counters.items()}
+
+
+# what the parent commit's kernels took on the same inputs (NVIDIA H100 80GB
+# HBM3, 700.00 W; this script's phases 12 and 17 on that commit, from
+# PERF.md), printed beside this run's readings
+PARENT_MS = {
+    "warp chunk 128x1024^2 x 100": "111.9-112.6",
+    "mc 1024^3": {"count": "14.50-14.53", "scan": "8.99-9.05",
+                  "emit": "19.81-19.92",
+                  "all three with the host read": "43.6-43.9"},
+    "mc [258, 1024, 1024] windowed": {
+        "count": "4.43-4.53", "scan": "1.83-1.85", "emit": "5.54-5.65",
+        "all three with the host read": "11.93-12.25"},
+}
 
 
 def phase_sweep(device, n=1024, n_views=100):
@@ -1119,10 +1351,14 @@ def phase_sweep(device, n=1024, n_views=100):
     bound = _warp_bound(a[0], a[1], imgs, n_views)
     del a, ps, pu
     torch.cuda.empty_cache()
+    at_full = (n, n_views) == (1024, 100)
     _phase("sweep", f"planes [{zs.start}, {zs.stop}) x {n_views} views: "
            f"fused warp kernel == plain (update_num exact, sdf bitwise); "
-           f"kernel {ms:.3f} ms per chunk, bound {bound[0]:.3f} ms by "
-           f"{bound[1]}")
+           f"kernel {ms:.3f} ms per chunk"
+           + (f" (parent {PARENT_MS['warp chunk 128x1024^2 x 100']} ms)"
+              if at_full else "")
+           + f", bound {bound[0]:.3f} ms by {bound[1]}, "
+           f"{launches['warp_fused']} launches on the sweep")
 
     # kernel B == plain on a 64-plane slab of the fused state: the plain
     # version's dense temporaries (some 60 bytes per voxel) do not fit n^3
@@ -1182,7 +1418,7 @@ def phase_sweep(device, n=1024, n_views=100):
            f"{numpy_s:.4f} s; the written PLY equals the "
            f"mesh")
 
-    # the scan pass at this size: one CTA over nz * tiles_per_plane tiles
+    # the scan pass at this size, over nz * tiles_per_plane tiles
     tpp = mc_fused.tiles_per_plane(ny, nx)
     counts = mc_fused.mc_tile_counts(blocked.sdf, blocked.update_num,
                                      *centers)
@@ -1197,12 +1433,25 @@ def phase_sweep(device, n=1024, n_views=100):
     scan_lib = _cuda_ms(
         lambda: torch.cumsum(counts, dim=0, dtype=torch.int32), 5)
     scan_bound = _bound(_nbytes(counts, *k), 4 * counts.numel())
+    # the host launches four small kernels per scan: what the card spends
+    spans = [sp for sp in _kernel_spans(
+        lambda: mc_fused.mc_scan(counts, tpp), 10) if "mc_scan" in sp[0]
+        or "mc_plane_counts" in sp[0]]
+    _require(len(spans) == 4 and all(sp[1] > 0 for sp in spans),
+             f"sweep: the scan should be four kernels, got {spans}")
+    # a kernel's mean over the launches the profiler kept (it may drop one)
+    scan_dev_ms = sum(sp[2] / sp[1] for sp in spans) * 1e-3
     _phase("sweep", f"{n}^3 scan pass over {counts.shape[0]} tiles: "
-           f"{scan_ms:.3f} ms (plain {scan_plain:.3f} ms, one torch.cumsum "
-           f"{scan_lib:.3f} ms, bound {scan_bound[0]:.4f} ms by "
-           f"{scan_bound[1]})")
-    _phase("sweep", f"{n}^3 MC passes: " + _mc_pass_times(
-        blocked.sdf, blocked.update_num, centers, {}))
+           f"{scan_ms:.3f} ms per call from the host, {scan_dev_ms:.4f} ms "
+           f"on the card over its four kernels (plain {scan_plain:.3f} ms, "
+           f"one torch.cumsum {scan_lib:.3f} ms, bound {scan_bound[0]:.4f} "
+           f"ms by {scan_bound[1]})")
+    busy = float((counts.sum(dim=1) > 0).float().mean())
+    _phase("sweep", f"{n}^3 MC passes ({launches['mc_fused']} launches of "
+           f"each on the sweep; {busy:.4f} of the {counts.shape[0]} tiles "
+           f"non-empty): " + _mc_pass_times(
+               blocked.sdf, blocked.update_num, centers, {},
+               PARENT_MS["mc 1024^3"] if at_full else None))
     scan = {"ms": scan_ms, "plain_ms": scan_plain, "library_ms": scan_lib,
             "bound": scan_bound, "err": scan_err}
     del blocked, st, counts
@@ -1372,12 +1621,15 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def _mc_pass_times(sdf, un, centers, window: dict, iters: int = 3) -> str:
+def _mc_pass_times(sdf, un, centers, window: dict, parent=None,
+                   iters: int = 3) -> str:
     """The MC kernel's count, scan and emit passes timed apart and
     together on one state, each beside its bound: the bytes the pass must
     move (its inputs read once, its outputs written once) over the card's
     memory rate, or about 30 float32 operations per voxel (8 compares, the
-    case, the flags) for the passes that walk the voxels."""
+    case, the flags) for the passes that walk the voxels. ``parent``:
+    {pass: the parent commit's milliseconds on the same state}, printed
+    beside each."""
     from vacancy_tpu_torch.ops import mc_fused
 
     a = (sdf, un, *centers)
@@ -1400,7 +1652,9 @@ def _mc_pass_times(sdf, un, centers, window: dict, iters: int = 3) -> str:
          _bound(_nbytes(sdf, un, *outs, plane_counts), ops)),
     )
     return ", ".join(
-        f"{name} {_cuda_ms(fn, iters):.3f} ms (bound {b[0]:.4f} ms by {b[1]})"
+        f"{name} {_cuda_ms(fn, iters):.3f} ms ("
+        + (f"parent {parent[name]} ms, " if parent else "")
+        + f"bound {b[0]:.4f} ms by {b[1]})"
         for name, fn, b in passes) + f"; {sum(tot)} stream elements"
 
 
@@ -1715,7 +1969,10 @@ def phase_sharded_sweep(device, ref_mesh, ref_sha, ref_peak, n=1024,
             args, window = _windowed_block(sh, halos, grid, (1, 0, 0))
             _phase("sharded", f"MC passes on the (4,) block "
                    f"{list(args[0].shape)} with windows: "
-                   + _mc_pass_times(args[0], args[1], args[2:], window))
+                   + _mc_pass_times(
+                       args[0], args[1], args[2:], window,
+                       PARENT_MS["mc [258, 1024, 1024] windowed"]
+                       if (n, n_views) == (1024, 100) else None))
             err, cubes = _require_slab_equals_plain(
                 args, window, "sharded sweep (4,) block (1, 0, 0) slab")
             b_err = max(b_err, err)

@@ -132,6 +132,11 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     tables, pos = _rows_case(True, "meta")
     with pytest.raises(ValueError, match="CUDA"):
         interp_rows(tables, pos, tables.shape[2], share_table=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        bench.probe_scale(torch.ones(bench.PROBE_SHAPE, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        mc_fused.mc_scan(torch.zeros((4, 4), dtype=torch.int32,
+                                     device="meta"), 2)
 
 
 def test_wrappers_on_cpu_equal_the_plain_versions():
@@ -278,6 +283,55 @@ def test_warp_kernel_equals_plain_on_gpu(cuda_device, rule, linear, roi):
     assert warp_fused.warp_fuse_planes.launches == before + 1
     assert torch.equal(ku, pu)
     assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert bool((ku != args[1]).any())
+
+
+# shapes that straddle kernel A's tiling (a CTA owns 32 x by 64 y of one
+# plane): (name, shape, image rows, ROI)
+TILING_CASES = {
+    "ny-under-one-y-tile": ((6, 37, 40), 240, None),
+    "two-y-tiles-and-two-rows": ((5, 130, 33), 240, None),
+    "a-y-tile-outside-the-roi": ((8, 256, 48), 240, (0, 30, 319, 110)),
+    "band-in-row-chunks": ((11, 17, 45), 1800, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outside", ["NONE", "MAX"])
+@pytest.mark.parametrize("linear", [True, False], ids=["bilinear", "nn"])
+@pytest.mark.parametrize("case", list(TILING_CASES))
+def test_warp_kernel_tiling_edges_equal_plain_on_gpu(cuda_device, case,
+                                                     linear, outside):
+    """Kernel A across its tiling's edges: rows past the grid in the last
+    y-tile, a y-tile that no view's ROI reaches (skipped, or given the
+    image's max), views of 1800 rows whose tapped band exceeds the rows of
+    the intermediate held in shared memory; and the same in place."""
+    shape, rows, roi = TILING_CASES[case]
+    args = _warp_case(shape, 3, cuda_device)
+    if rows != args[-1].shape[1]:
+        scale = rows / args[-1].shape[1]
+        rng = np.random.default_rng(4)
+        args[-1] = torch.from_numpy(rng.normal(
+            size=(3, rows, 360)).astype(np.float32)).to(cuda_device)
+        args[6], args[7] = args[6].clone(), args[7].clone()
+        args[6][:, 1] *= scale  # the principal point's and the focal
+        args[7][:, 1] *= scale  # length's v: the same view, taller
+        plan = warp_fused.fused_plan(
+            *shape, rows, warp_fused.smem_optin_bytes(cuda_device))
+        assert plan.inter_rows < rows  # the band goes in chunks
+    opt = cfg.VoxelUpdateOption(
+        voxel_update=cfg.VoxelUpdate.WEIGHTED_AVERAGE, use_truncation=True,
+        truncation_band=0.4, update_outside=cfg.UpdateOutsideImage[outside])
+    ks, ku = warp_fused.warp_fuse_planes(*args, opt, linear, roi)
+    ps, pu = warp_fuse_planes_plain(*args, opt, linear, roi)
+    s, u = args[0].clone(), args[1].clone()
+    warp_fused.warp_fuse_planes(s, u, *args[2:], opt, linear, roi,
+                                out=(s, u))
+    torch.cuda.synchronize()
+    assert torch.equal(ku, pu)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert torch.equal(u, ku)
+    assert torch.equal(s.view(torch.int32), ks.view(torch.int32))
     assert bool((ku != args[1]).any())
 
 
@@ -560,11 +614,14 @@ def test_blocked_carve_equals_unblocked_on_gpu(cuda_device, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(300, 7), (1, 1), (64, 1024)],
-                         ids=["300x7", "one-tile", "64x1024"])
+@pytest.mark.parametrize("shape", [(300, 7), (1, 1), (64, 1024), (128, 1024),
+                                   (1024, 1024), (3, 700001)],
+                         ids=["300x7", "one-tile", "64x1024", "131072",
+                              "1048576", "2051-blocks-two-top-passes"])
 def test_mc_scan_kernel_equals_cumsum_on_gpu(cuda_device, shape):
     """B's scan pass on its own against torch.cumsum: exclusive offsets,
-    totals and per-plane counts of random tile counts."""
+    totals and per-plane counts of random tile counts, from one tile to
+    more block sums than the one CTA over them takes at once."""
     nz, tpp = shape
     rng = np.random.default_rng(11)
     counts = torch.from_numpy(rng.integers(
@@ -576,8 +633,32 @@ def test_mc_scan_kernel_equals_cumsum_on_gpu(cuda_device, shape):
     assert mc_fused.mc_scan.launches == before + 1
     for a, b in zip(k, p):
         assert a.dtype == b.dtype and torch.equal(a, b)
+    for _ in range(3):  # and the same bytes every time
+        again = mc_fused.mc_scan(counts, tpp)
+        assert all(torch.equal(a, b) for a, b in zip(again, k))
     with pytest.raises(ValueError, match="planes"):
         mc_fused.mc_scan(counts, tpp + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "nointerp"])
+def test_mc_kernel_on_a_surface_inside_two_tiles_on_gpu(cuda_device, linear):
+    """One voxel below the iso level: its flags lie in its own tile and in
+    the one a plane below; the emit pass leaves every other tile at
+    once."""
+    shape = (24, 40, 52)
+    args = _density_state(shape, 0.0, cuda_device)
+    args[0][10, 12, 45] = -0.5
+    counts = mc_fused.mc_tile_counts(*args)
+    assert torch.equal(counts, mc_fused.mc_tile_counts_plain(*args[:2]))
+    assert int((counts.sum(dim=1) > 0).sum()) == 2
+    k = mc_fused.marching_cubes_fused(*args, linear_interp=linear)
+    p = mc_fused.mc_streams_plain(*args, linear_interp=linear)
+    torch.cuda.synchronize()
+    assert k.c_lin.numel() == 8 and k.vx_lin.numel() == 2
+    for a, b in zip(k.as_tuple(), p.as_tuple()):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda

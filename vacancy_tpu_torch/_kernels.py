@@ -37,12 +37,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 _SIGNATURES = {
-    "vt_warp_fuse_planes": [_P] * 10 + [_I] * 15 + [_F, _F, _I, _P],
+    "vt_warp_fuse_planes": [_P] * 10 + [_I] * 15 + [_F, _F, _I, _I, _P],
+    "vt_warp_tiling": [_I],
+    "vt_warp_ctas_per_sm": [_I],
     "vt_interp_rows": [_P] * 3 + [_I] * 8 + [_P],
     "vt_mc_tiles": [_I, _I],
     "vt_mc_count": [_P] * 5 + [_I] * 3 + [_F, _I, _IP] + [_P] * 2,
-    "vt_mc_scan": [_P] * 4 + [_I] * 3 + [_P],
-    "vt_mc_emit": [_P] * 5 + [_I] * 3 + [_F, _I, _IP] + [_P] * 10,
+    "vt_mc_scan_blocks": [_I],
+    "vt_mc_scan": [_P] * 4 + [_I] * 3 + [_P, _P],
+    "vt_mc_emit": ([_P] * 5 + [_I] * 3 + [_F, _I, _IP] + [_P, _IP]
+                   + [_P] * 9),
     "vt_probe_scale": [_P, _P, _I, _P],
 }
 

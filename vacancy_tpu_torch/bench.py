@@ -22,6 +22,7 @@ nothing is run in the card's place.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import time
@@ -48,19 +49,26 @@ def probe_scale_plain(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0
 
 
+@functools.lru_cache(maxsize=None)
+def _probe_entry():
+    """The library's bound ``vt_probe_scale``, looked up once."""
+    return _kernels.load().vt_probe_scale
+
+
 def probe_scale(x: torch.Tensor) -> torch.Tensor:
     """``x * 2`` for a contiguous f32 tensor. A CPU tensor takes the plain
     version; a CUDA tensor launches the probe kernel once
     (``probe_scale.launches``) or raises on a failed build or launch."""
     if x.device.type == "cpu":
         return probe_scale_plain(x)
-    _kernels.check_tensor("x", x, torch.float32, x.shape)
+    if (x.device.type != "cuda" or x.dtype != torch.float32
+            or not x.is_contiguous()):
+        raise ValueError(f"x must be a contiguous float32 CUDA tensor, got "
+                         f"{x.dtype} on {x.device}")
     out = torch.empty_like(x)
-    _kernels.check(
-        _kernels.load().vt_probe_scale(x.data_ptr(), out.data_ptr(),
-                                       x.numel(),
-                                       _kernels.stream_ptr(x.device)),
-        "probe kernel launch")
+    err = _probe_entry()(x.data_ptr(), out.data_ptr(), x.numel(),
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(err, "probe kernel launch")
     probe_scale.launches += 1
     return out
 

@@ -7,10 +7,12 @@ decides the x/y/z canonical-edge flags (the edge straddles the iso level
 and one of its 4 adjacent cubes is valid) with the vertex position along
 the edge, and the active-cube flag (valid cube, case not 0 or 255) with
 the case index; each of the four streams is compacted in flat (z, y, x)
-order. A count pass, a scan over tiles and an emit pass into exactly
-sized buffers take the place of the TPU kernel's shift ladder and
-capacity retry. ``mc_streams_plain`` computes the same streams densely in
-PyTorch, compacted by boolean-mask indexing (which yields flat order).
+order. A count pass, a scan over tiles (block sums, a scan of those, the
+tiles of each block) and an emit pass into exactly sized buffers, which
+leaves a tile without flags after reading its offsets, take the place of
+the TPU kernel's shift ladder and capacity retry. ``mc_streams_plain``
+computes the same streams densely in PyTorch, compacted by boolean-mask
+indexing (which yields flat order).
 The count and scan passes have wrappers of their own (``mc_tile_counts``,
 ``mc_scan``) with plain versions beside them, so each pass can be held
 against its plain version alone.
@@ -299,12 +301,26 @@ def _global_lin(lin: torch.Tensor, ny: int, nx: int,
 TILE = 1024
 
 
+# tiles per block of the scan pass (SCAN_BLOCK): each block sums, then
+# scans, its own tiles; one CTA scans the block sums between the two
+SCAN_BLOCK = 1024
+
+
 def tiles_per_plane(ny: int, nx: int) -> int:
     return -(-(ny * nx) // TILE)
 
 
+def scan_blocks(n_tiles: int) -> int:
+    """Blocks (CTAs) of the scan pass over ``n_tiles`` tiles; its scratch
+    array holds four int32 for each."""
+    return -(-n_tiles // SCAN_BLOCK)
+
+
 def _check_state(sdf, un, cx, cy, cz):
     nz, ny, nx = sdf.shape
+    if sdf.numel() >= 2**31:
+        raise ValueError(f"the MC kernel indexes a state with int32: "
+                         f"{nz}x{ny}x{nx} voxels are too many")
     _kernels.check_tensor("sdf", sdf, torch.float32, (nz, ny, nx))
     _kernels.check_tensor("update_num", un, torch.int32, (nz, ny, nx))
     _kernels.check_tensor("cx", cx, torch.float32, (nx,))
@@ -382,7 +398,8 @@ def mc_scan(tile_counts: torch.Tensor, tpp: int):
     """Pass 2 of the fused MC kernel on its own: the exclusive offset of
     every tile per stream, the four totals and the per-plane counts of
     ``tile_counts`` i32[nz * tpp, 4]. CPU tensors take the plain version;
-    CUDA tensors launch the scan kernel (``mc_scan.launches``) or raise."""
+    CUDA tensors launch the scan's kernels over ``scan_blocks(n_tiles)``
+    blocks (``mc_scan.launches`` counts each such scan) or raise."""
     if tile_counts.device.type == "cpu":
         return mc_scan_plain(tile_counts, tpp)
     n_tiles = tile_counts.shape[0]
@@ -392,13 +409,18 @@ def mc_scan(tile_counts: torch.Tensor, tpp: int):
         raise ValueError(f"{n_tiles} tiles are not planes of {tpp} tiles")
     dev = tile_counts.device
     nz = n_tiles // tpp
+    lib = _kernels.load()
+    if lib.vt_mc_scan_blocks(n_tiles) != scan_blocks(n_tiles):
+        raise RuntimeError("SCAN_BLOCK differs from csrc/mc_fused.cu's")
     offsets = torch.empty_like(tile_counts)
     totals = torch.empty(4, dtype=torch.int32, device=dev)
     plane_counts = torch.empty((nz, 4), dtype=torch.int32, device=dev)
+    scratch = torch.empty((scan_blocks(n_tiles), 4), dtype=torch.int32,
+                          device=dev)
     _kernels.check(
-        _kernels.load().vt_mc_scan(
+        lib.vt_mc_scan(
             tile_counts.data_ptr(), offsets.data_ptr(), totals.data_ptr(),
-            plane_counts.data_ptr(), n_tiles, tpp, nz,
+            plane_counts.data_ptr(), n_tiles, tpp, nz, scratch.data_ptr(),
             _kernels.stream_ptr(dev)),
         "mc_fused scan launch")
     mc_scan.launches += 1
@@ -415,8 +437,10 @@ def mc_emit(sdf, un, cx, cy, cz, tile_offsets: torch.Tensor, totals,
     """Pass 3 of the fused MC kernel on CUDA tensors: the count pass's
     flags again, each written at its rank into buffers of exactly
     ``totals`` (four host ints: x/y/z-edge and cube counts) elements, from
-    the scan's exclusive ``tile_offsets``. The window keywords must be the
-    count pass's. Returns the eight stream tensors, or raises."""
+    the scan's exclusive ``tile_offsets``; a tile whose offsets equal the
+    next tile's (the totals, for the last) has no flag and is left at
+    once. The window keywords must be the count pass's. Returns the eight
+    stream tensors, or raises."""
     _check_state(sdf, un, cx, cy, cz)
     em = _emission(sdf.shape, own_k, own_j, own_i, zb, yx_base, gdims)
     dev = sdf.device
@@ -426,7 +450,8 @@ def mc_emit(sdf, un, cx, cy, cz, tile_offsets: torch.Tensor, totals,
     def i32(n):
         return torch.empty(n, dtype=torch.int32, device=dev)
 
-    ne, ny_, nz_, nc = (int(t) for t in totals)
+    totals = [int(t) for t in totals]
+    ne, ny_, nz_, nc = totals
     outs = []
     for n in (ne, ny_, nz_):
         outs += [torch.empty(n, dtype=torch.float32, device=dev), i32(n)]
@@ -435,7 +460,8 @@ def mc_emit(sdf, un, cx, cy, cz, tile_offsets: torch.Tensor, totals,
         _kernels.load().vt_mc_emit(
             *_geometry_args(sdf, un, cx, cy, cz, iso_level, linear_interp,
                             em),
-            tile_offsets.data_ptr(), *(o.data_ptr() for o in outs),
+            tile_offsets.data_ptr(), (ctypes.c_int * 4)(*totals),
+            *(o.data_ptr() for o in outs),
             _kernels.stream_ptr(dev),
         ),
         "mc_fused emit launch",

@@ -3,13 +3,17 @@
 
 The kernel (``csrc/warp_fused.cu``) replaces
 ``vacancy_tpu/ops/warp_fused.py::_warp_fused_kernel``: one launch folds
-every view into the state, per (z-plane, 32-wide x-tile) CTA, with the
-pass-1 intermediate (``h x 32`` f32) in shared memory (see the source's
-header for what bounds it and what the design does about it). A block
-may opt into no more shared memory than the card allows (232,448 bytes
-on an H100), so the kernel takes images of at most ``max_fused_rows``
-rows (1816 there); ``ops/fusion_warp.carve_views_warp`` sends taller
-views to the two-pass engine instead.
+every view into the state. A CTA owns a (z-plane, 32-wide x-tile, 64-row
+y-tile); each thread loads its 8 voxels once, folds every view with the
+state in registers, and stores them once. Per view the pass-1 intermediate
+is computed only over the band of image rows the CTA's voxels tap and
+lives in shared memory, ``inter_rows`` rows at a time (see the source's
+header for what bounds it and what the design does about it).
+``fused_plan`` mirrors the launch: the grid, the rows and the bytes of
+shared memory. ``ops/fusion_warp.carve_views_warp`` sends views taller
+than ``max_fused_rows`` to the two-pass engine: the dispatch's limit is
+``h * 32`` f32 within the card's shared-memory opt-in (1816 rows on an
+H100), though the kernel holds at most ``INTER_ROWS_CAP`` rows at a time.
 
 With ``ortho_rows`` the views are orthographic: the caller passes the
 synthetic homography (third row ``(0, 0, 0, 1)``, unit focal length, zero
@@ -26,6 +30,8 @@ them.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -36,9 +42,19 @@ from . import fusion_warp  # which imports this module: use at call time
 from .fusion import truncation_threshold
 from .warp_gather import interp_rows_plain
 
-# the x-tile width of csrc/warp_fused.cu (TX): a CTA keeps the pass-1
-# intermediate of one (z-plane, x-tile), h * TILE_X f32, in shared memory
+# the tiling of csrc/warp_fused.cu: a CTA of THREADS threads owns TILE_X
+# consecutive x (one warp) by TILE_Y rows of one z-plane, 8 voxels a thread
 TILE_X = 32
+TILE_Y = 64
+THREADS = 256
+# registers a thread may use (__launch_bounds__(256, 4): four CTAs per SM)
+REGISTER_BUDGET = 64
+# rows of the pass-1 intermediate a CTA holds at once (INTER_ROWS_CAP x
+# TILE_X f32 = 48 KiB: four CTAs fit an SM); a taller band goes in chunks
+INTER_ROWS_CAP = 384
+# the kernel's fixed shared memory: two buffers of 24 coefficients, the
+# band reduction's 2 x 8 ints and the y-tile's TILE_Y centers
+STATIC_SMEM_BYTES = 2 * 24 * 4 + 2 * 8 * 4 + TILE_Y * 4
 
 
 def max_fused_rows(optin_bytes: int) -> int:
@@ -48,9 +64,55 @@ def max_fused_rows(optin_bytes: int) -> int:
 
 
 def fused_fits(h: int, optin_bytes: int) -> bool:
-    """Whether kernel A takes views of ``h`` rows: its pass-1
-    intermediate, ``h * TILE_X`` f32, fits ``optin_bytes``."""
+    """Whether ``carve_views_warp`` gives views of ``h`` rows to kernel A:
+    ``h * TILE_X`` f32 fit ``optin_bytes``."""
     return h <= max_fused_rows(optin_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """One launch of kernel A, as the C entry point makes it."""
+
+    grid: Tuple[int, int, int]  # CTAs over (x-tiles, z-planes, y-tiles)
+    inter_rows: int  # rows of the intermediate in shared memory
+    smem_bytes: int  # dynamic + static shared memory of a CTA
+
+
+def fused_plan(nz: int, ny: int, nx: int, h: int,
+               optin_bytes: int) -> FusedPlan:
+    """The launch for a state of ``nz x ny x nx`` voxels and views of ``h``
+    rows on a card whose blocks may opt into ``optin_bytes`` of shared
+    memory. Raises ValueError for what the kernel does not take."""
+    if min(nz, ny, nx, h) < 1:
+        raise ValueError(f"empty state or views: {(nz, ny, nx)}, {h} rows")
+    if not fused_fits(h, optin_bytes):
+        raise ValueError(
+            f"the fused warp kernel takes images of at most "
+            f"{max_fused_rows(optin_bytes)} rows ({optin_bytes} bytes of "
+            f"shared memory per block), got {h}: carve_views_warp takes the "
+            f"two-pass engine for such views")
+    grid = (-(-nx // TILE_X), nz, -(-ny // TILE_Y))
+    if grid[1] > 65535 or grid[2] > 65535:
+        raise ValueError(f"{nz} planes or {grid[2]} y-tiles exceed a grid's "
+                         f"65535")
+    rows = min(h, INTER_ROWS_CAP,
+               (optin_bytes - STATIC_SMEM_BYTES) // (TILE_X * 4))
+    if rows < min(h, 2):  # a chunk must hold a linear tap pair
+        raise ValueError(f"{optin_bytes} bytes of shared memory hold no "
+                         f"two rows of the intermediate")
+    return FusedPlan(grid, rows, rows * TILE_X * 4 + STATIC_SMEM_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_tiling() -> None:
+    """Once per process: the built kernel's tiling is this module's."""
+    lib = _kernels.load()
+    got = tuple(lib.vt_warp_tiling(i) for i in range(5))
+    if got[:3] != (TILE_X, TILE_Y, THREADS) or not (
+            0 <= got[3] <= STATIC_SMEM_BYTES) or not (
+            0 < got[4] <= REGISTER_BUDGET):
+        raise RuntimeError(f"csrc/warp_fused.cu's tiling {got} differs from "
+                           f"ops/warp_fused.py's")
 
 
 def smem_optin_bytes(device: torch.device) -> int:
@@ -119,8 +181,8 @@ def warp_fuse_planes(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fuse every view, in order, into (sdf, un); returns new tensors, or
     ``out`` = (sdf, update_num) tensors to write, which may be the inputs
-    themselves (an update in place: each voxel is read and written by one
-    thread).
+    themselves (an update in place: each voxel is read, before the first
+    view, and written, after the last, by one thread).
 
     With ``ortho_rows`` the caller passes the SYNTHETIC orthographic
     homography in ``w2c`` (third row (0, 0, 0, 1)), unit ``focal_length``
@@ -162,13 +224,7 @@ def warp_fuse_planes(
     x0, y0, x1, y1 = roi or (0, 0, w - 1, h - 1)
     if not (0 <= x0 <= x1 < w and 0 <= y0 <= y1 < h):
         raise ValueError(f"roi {roi} outside the {w}x{h} image")
-    optin = smem_optin_bytes(sdf.device)
-    if not fused_fits(h, optin):
-        raise ValueError(
-            f"the fused warp kernel takes images of at most "
-            f"{max_fused_rows(optin)} rows on {sdf.device} ({optin} bytes of "
-            f"shared memory per block), got {h}: carve_views_warp takes the "
-            f"two-pass engine for such views")
+    plan = fused_plan(nz, ny, nx, h, smem_optin_bytes(sdf.device))
     if out is None:
         out_sdf, out_un = torch.empty_like(sdf), torch.empty_like(un)
     else:
@@ -185,8 +241,8 @@ def warp_fuse_planes(
 
     coef = _coefficients(w2c, principal_point, focal_length, ortho_rows)
     vmax = sdf_images.amax(dim=(1, 2)).contiguous()
-    lib = _kernels.load()
-    err = lib.vt_warp_fuse_planes(
+    _check_tiling()
+    err = _kernels.load().vt_warp_fuse_planes(
         sdf.data_ptr(), un.data_ptr(), out_sdf.data_ptr(), out_un.data_ptr(),
         cx.data_ptr(), cy.data_ptr(), cz.data_ptr(), coef.data_ptr(),
         vmax.data_ptr(), sdf_images.data_ptr(),
@@ -199,6 +255,7 @@ def warp_fuse_planes(
         float(truncation_threshold(opt)),
         float(opt.voxel_update_weight),
         int(ortho_rows is not None),
+        plan.inter_rows,
         _kernels.stream_ptr(sdf.device),
     )
     _kernels.check(err, "warp_fused kernel launch")
