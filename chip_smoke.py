@@ -30,9 +30,14 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      exact, sdf bitwise, counts and streams byte-identical, and as many
      vertices as the main path's mesh.
   6. interp_rows kernel vs its plain version, bitwise and timed, at the
-     two shapes the UHD facade path gives it (pass 1: a shared 2160 x 3840
+     two UHD shapes with random positions (pass 1: a shared 2160 x 3840
      image, positions [64, 2160, 512]; pass 2: tables [64, 512, 2160],
-     positions [64, 512, 512]), linear and NN, full row and a ROI.
+     positions [64, 512, 512]), linear and NN, full row and a ROI; at the
+     UHD facade's own two launches for one view (pass 1 [512, 2160, 512]
+     at u_eq, pass 2 [512, 512, 512] at v*), each beside its bound, the
+     plain version and one F.grid_sample; the variants off the fast way
+     (t % 4 != 0, unaligned positions, a row wider than the staging
+     budget); the staged variant at 8 to 64 planes per CTA.
   7. the two-pass engine through interp_rows vs the fused warp kernel on
      the 128^3 x 8 turntable (240 rows): update_num exact, sdf bitwise;
      both timed.
@@ -118,6 +123,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      done after 300 s, fails the run.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. No JAX is imported.
+
+    python3 chip_smoke.py --interp-only [--compare-source FILE]
+
+runs phases 1, 2 and 6 alone and prints their times as one JSON line; FILE
+is another kernel C source (an earlier commit's), built and timed in turns
+with this one on the same inputs.
 """
 
 from __future__ import annotations
@@ -616,50 +627,277 @@ INTERP_SHAPES = (
     ("pass1", (1, 2160, 3840), (64, 2160, 512), True, (200, 3600)),
     ("pass2", (64, 512, 2160), (64, 512, 512), False, (100, 2000)),
 )
+# planes per CTA tried for the staged variant at each pass-1 shape
+INTERP_GROUPS = (8, 16, 32, 64, 128, 256, 512)
 
 
-def _grid_sample_ms(table, pos) -> float:
+def _grid_sample_ms(tables, pos, share) -> float:
     """Milliseconds of the one PyTorch call that computes kernel C's linear
-    full-row case with a shared table: ``F.grid_sample`` (bilinear, border
-    padding, corners aligned) of the [1, R, T] table at a grid made
-    beforehand from the positions [B, R, N] and their row numbers. The
-    positions are clamped at 0 first, as the port's callers clip them (left
-    of 0 the kernel blends taps 0 and 1 where border padding holds tap 0).
-    The normalised coordinates round, so the result is held to kernel C's
-    within 1e-2 of a unit-normal table, not bitwise."""
+    full-row case: ``F.grid_sample`` (bilinear, border padding, corners
+    aligned) at a grid made beforehand from the positions [B, R, N] and
+    their row numbers, of the shared [1, R, T] table (as one image) or of
+    the [B, R, T] tables (as B images of one channel). The positions are
+    clamped at 0 first, as the port's callers clip them (left of 0 the
+    kernel blends taps 0 and 1 where border padding holds tap 0). The
+    normalised coordinates round, so the result is held to kernel C's
+    within 1e-2 of the tables' scale, not bitwise."""
     import torch
     import torch.nn.functional as F
 
     from vacancy_tpu_torch.ops.warp_gather import interp_rows
 
     b, r, n = pos.shape
-    t = table.shape[2]
+    t = tables.shape[2]
     pos = pos.clamp_min(0.0)
     rows = torch.arange(r, dtype=torch.float32, device=pos.device)
     grid = torch.stack(
         [pos * (2.0 / (t - 1)) - 1.0,
-         (rows * (2.0 / (r - 1)) - 1.0)[None, :, None].expand(b, r, n)],
-        dim=-1).reshape(1, b * r, n, 2)
+         (rows * (2.0 / max(r - 1, 1)) - 1.0)[None, :, None].expand(b, r, n)],
+        dim=-1)
+    image = tables[None] if share else tables[:, None]
+    if share:
+        grid = grid.reshape(1, b * r, n, 2)
 
     def call():
-        return F.grid_sample(table[None], grid, mode="bilinear",
+        return F.grid_sample(image, grid, mode="bilinear",
                              padding_mode="border", align_corners=True)
 
+    scale = max(float(tables.abs().max()), 1.0)
     err = float((call().reshape(b, r, n)
-                 - interp_rows(table, pos, t, True, True)).abs().max())
-    _require(err <= 1e-2, f"F.grid_sample differs from interp_rows by {err}")
-    return _cuda_ms(call, 5)
+                 - interp_rows(tables, pos, t, True, share)).abs().max())
+    _require(err <= 1e-2 * scale,
+             f"F.grid_sample differs from interp_rows by {err}")
+    ms = _cuda_ms(call, 5)
+    del grid, pos
+    return ms
 
 
-def phase_interp(device, shapes=INTERP_SHAPES):
-    """Kernel C against its plain version at the two shapes the UHD
-    facade path gives it: pass 1 (a shared 2160 x 3840 image, positions
-    for 64 z-planes x 2160 rows x 512 columns) and pass 2 (64 transposed
-    pass-1 planes of 512 x 2160, positions 64 x 512 x 512)."""
+def _interp_bound(tables, pos, share, lo, hi):
+    """(bound, bound with every table element read): the taps the linear
+    full-row case needs read once (a gather needs only the table elements
+    its positions tap: counted on the card), the positions read once, the
+    outputs written once; 6 operations per output (floor, frac, 1 - frac,
+    two products, the sum)."""
+    import torch
+
+    n, r, t = pos.shape
+    width = tables.shape[2]
+    tapped = torch.zeros(tables.numel(), dtype=torch.bool, device=pos.device)
+    step = max(1, (1 << 26) // (r * t))
+    for n0 in range(0, n, step):
+        p = pos[n0:n0 + step]
+        row = torch.arange(r, device=pos.device).view(1, r, 1)
+        if not share:
+            row = row + torch.arange(n0, n0 + p.shape[0],
+                                     device=pos.device).view(-1, 1, 1) * r
+        p0 = torch.floor(p).to(torch.int64).clamp_(lo, hi)
+        tapped[row * width + p0] = True
+        tapped[row * width + torch.clamp_max(p0 + 1, hi)] = True
+        del p0
+    n_tapped = int(tapped.sum())
+    del tapped
+    ops = 6 * pos.numel()
+    return (_bound(4 * n_tapped + _nbytes(pos, pos), ops),
+            _bound(_nbytes(tables, pos, pos), ops))
+
+
+def _facade_launches(device):
+    """Kernel C's two launches for view 0 of the UHD facade (512^3, 3840 x
+    2160, WAVG, band 0.05, bilinear), as the facade makes them: the
+    two-pass engine's sampler is swapped for one that records its
+    arguments and calls interp_rows. Returns [(tables, pos, width,
+    linear, share, lo, hi)] for pass 1 and pass 2."""
+    import torch
+
+    from vacancy_tpu_torch import VoxelCarver
+    from vacancy_tpu_torch.ops import fusion_warp
+    from vacancy_tpu_torch.ops.warp_gather import interp_rows
+    from vacancy_tpu_torch.pipeline import facade_inputs
+
+    opt, cams, masks = facade_inputs(512, 1, 3840, 2160, device)
+    calls = []
+
+    def record(tables, pos, width, linear, share, lo, hi):
+        calls.append((tables, pos, width, linear, share, lo, hi))
+        return interp_rows(tables, pos, width, linear, share, lo, hi)
+
+    carver = VoxelCarver(opt, device)
+    _require(carver.init(), "VoxelCarver.init")
+    fusion_warp.interp_rows = record
+    try:
+        carver.carve_batch(cams, masks, engine="warp")
+    finally:
+        fusion_warp.interp_rows = interp_rows
+    torch.cuda.synchronize()
+    del carver
+    _require(len(calls) == 2, f"the facade's view made {len(calls)} calls")
+    return calls
+
+
+def _load_other_interp(source: str):
+    """Another build of kernel C, e.g. an earlier commit's
+    csrc/interp_rows.cu, compiled with the port's nvcc flags into a
+    temporary directory, for timing beside this one. Returns a function of
+    (tables, pos, out, n, r, t, width, share, linear, lo, hi, stream), the
+    entry point of the first kernel C, which took no plan; a source with
+    this one's entry point (it has ``vt_interp_tiling``) is launched with
+    this checkout's plan."""
+    import ctypes
+
+    import torch
+
+    from vacancy_tpu_torch import _kernels
+    from vacancy_tpu_torch.ops import warp_gather
+
+    tmp = tempfile.mkdtemp(prefix="interp_other_")
+    path = os.path.join(tmp, "libinterp_other.so")
+    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o",
+                    path, source], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(path)
+    fn = lib.vt_interp_rows
+    fn.restype = ctypes.c_int
+    if not hasattr(lib, "vt_interp_tiling"):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        return fn
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+
+    def launch(tables, pos, out, n, r, t, width, share, linear, lo, hi,
+               stream):
+        plan = warp_gather.interp_plan(n, r, t, width, bool(share), lo, hi,
+                                       _kernels.smem_optin_bytes(
+                                           torch.cuda.current_device()),
+                                       pos % 16 == 0)
+        return fn(tables, pos, out, n, r, t, width, share, linear, lo, hi,
+                  warp_gather.MODES[plan.mode], plan.group, plan.rows,
+                  stream)
+
+    return launch
+
+
+def _time_pair(kernel, other, iters):
+    """(kernel ms, other ms) in turns: other, kernel, kernel, other; each the
+    mean of its two readings (other None: (kernel ms, None))."""
+    if other is None:
+        return _cuda_ms(kernel, iters), None
+    o1, k1, k2, o2 = (_cuda_ms(f, iters) for f in (other, kernel, kernel,
+                                                   other))
+    return (k1 + k2) / 2, (o1 + o2) / 2
+
+
+def _interp_case(name, tables, pos, width, share, tapss, compare, iters):
+    """Kernel C == plain bitwise for linear and nn at each (lo, hi) of
+    ``tapss``; then the linear full row timed (and ``compare``'s build on
+    the same inputs), the plain version, the bound and the library call.
+    Returns (max |kernel - plain|, (ms, plain_ms, bound, lib_ms,
+    other_ms, bound with every table element read), the plan's
+    variant)."""
+    import torch
+
+    from vacancy_tpu_torch import _kernels
+    from vacancy_tpu_torch.ops.warp_gather import (interp_plan, interp_rows,
+                                                   interp_rows_plain)
+
+    n, r, t = pos.shape
+    err = 0.0
+    for linear in (True, False):
+        for lo, hi in tapss:
+            k = interp_rows(tables, pos, width, linear, share, lo, hi)
+            p = interp_rows_plain(tables, pos, width, linear, share, lo, hi)
+            torch.cuda.synchronize()
+            _require(torch.equal(_bits(k), _bits(p)),
+                     f"interp_rows {name} linear={linear} [{lo}, {hi}]: "
+                     f"kernel != plain")
+            err = max(err, float((k - p).abs().max()))
+            del k, p
+    plan = interp_plan(n, r, t, width, share, 0, width - 1,
+                       _kernels.smem_optin_bytes(pos.device),
+                       pos.data_ptr() % 16 == 0)
+    other = None
+    if compare is not None:
+        out = torch.empty_like(pos)
+        stream = _kernels.stream_ptr(pos.device)
+
+        def other():
+            _kernels.check(compare(tables.data_ptr(), pos.data_ptr(),
+                                   out.data_ptr(), n, r, t, width,
+                                   int(share), 1, 0, width - 1, stream),
+                           "the other interp_rows build")
+            return out
+
+        other()
+        _require(torch.equal(_bits(out), _bits(interp_rows(
+            tables, pos, width, True, share))),
+            f"{name}: the other build != kernel C")
+    ms, other_ms = _time_pair(
+        lambda: interp_rows(tables, pos, width, True, share), other, iters)
+    plain_ms = _cuda_ms(
+        lambda: interp_rows_plain(tables, pos, width, True, share), 3)
+    bound, whole = _interp_bound(tables, pos, share, 0, width - 1)
+    lib_ms = _grid_sample_ms(tables, pos, share)
+    gb = pos.numel() * 8 / 1e9
+    _phase("interp", f"{name} tables {list(tables.shape)} pos "
+           f"{list(pos.shape)}: bitwise equal (linear, nn; taps {list(tapss)}); variant "
+           f"{plan.mode} (grid {plan.grid}, group {plan.group}, rows "
+           f"{plan.rows}, {plan.smem_bytes} B shared); kernel {ms:.4f} ms "
+           f"({gb / ms:.3f} TB/s of positions + outputs, {bound[0] / ms:.2f} "
+           f"of the bound)"
+           + ("" if other_ms is None else f", the other build {other_ms:.4f}"
+              f" ms") + f", plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
+           f"by {bound[1]} ({whole[0]:.4f} ms with every table element read), "
+           f"F.grid_sample on a prebuilt grid {lib_ms:.4f} ms")
+    return err, (ms, plain_ms, bound, lib_ms, other_ms, whole), plan.mode
+
+
+def _staged_groups(name, tables, pos, groups=INTERP_GROUPS):
+    """The staged variant's time at ``groups`` planes per CTA, by the C
+    entry point, linear, full row; each result == interp_rows's."""
+    import torch
+
+    from vacancy_tpu_torch import _kernels
+    from vacancy_tpu_torch.ops import warp_gather
+
+    n, r, t = pos.shape
+    width = tables.shape[2]
+    ref = warp_gather.interp_rows(tables, pos, width, True, True)
+    out = torch.empty_like(pos)
+    lib, stream = _kernels.load(), _kernels.stream_ptr(pos.device)
+    times = {}
+    for g in (g for g in groups if g <= n):
+        def call(g=g):
+            _kernels.check(lib.vt_interp_rows(
+                tables.data_ptr(), pos.data_ptr(), out.data_ptr(), n, r, t,
+                width, 1, 1, 0, width - 1, warp_gather.MODES["staged"], g, 1,
+                stream), f"staged group {g}")
+
+        call()
+        torch.cuda.synchronize()
+        _require(torch.equal(_bits(out), _bits(ref)), f"{name} group {g}")
+        times[g] = _cuda_ms(call, 10)
+    _phase("interp", f"{name} staged, planes per CTA: " + ", ".join(
+        f"{g}: {ms:.4f} ms" for g, ms in times.items()))
+    return times
+
+
+def phase_interp(device, shapes=INTERP_SHAPES, compare=None):
+    """Kernel C against its plain version: (a) at the two UHD shapes with
+    random positions over the whole row (pass 1: a shared 2160 x 3840
+    image, positions for 64 z-planes x 2160 rows x 512 columns; pass 2: 64
+    transposed pass-1 planes of 512 x 2160, positions 64 x 512 x 512);
+    (b) at the facade's own two launches for one view (u_eq over all 512
+    planes, then v* on the transposed field); (c) the variants the plan
+    sends off the fast way: t % 4 != 0, an unaligned position pointer, a
+    shared row wider than the staging budget; (d) the staged variant at
+    other groups of planes per CTA. With ``compare`` (another build of
+    kernel C) both are timed in turns at (a) and (b)."""
     import numpy as np
     import torch
 
-    from vacancy_tpu_torch.ops.warp_gather import interp_rows, interp_rows_plain
+    from vacancy_tpu_torch import _kernels
+    from vacancy_tpu_torch.ops.warp_gather import (STAGE_BYTES_MAX,
+                                                   interp_plan, interp_rows,
+                                                   interp_rows_plain)
 
     rng = np.random.default_rng(7)
     timings, max_err = {}, 0.0
@@ -670,36 +908,69 @@ def phase_interp(device, shapes=INTERP_SHAPES):
         pos = torch.from_numpy(rng.uniform(
             -1.0, width, size=pshape).astype(np.float32)).to(device)
         pos[..., 0], pos[..., -1] = -1.0, float(width)
+        err, timings[name], _ = _interp_case(
+            name, tables, pos, width, share, ((0, width - 1), roi), compare,
+            20)
+        max_err = max(max_err, err)
+        if share:
+            timings[name + " groups"] = _staged_groups(name, tables, pos)
+        del tables, pos
+
+    calls = _facade_launches(device)
+    for name, (tables, pos, width, linear, share, lo, hi) in zip(
+            ("facade pass1", "facade pass2"), calls):
+        _require(linear and (lo, hi) == (0, width - 1),
+                 f"{name}: linear {linear}, taps [{lo}, {hi}]")
+        err, timings[name], mode = _interp_case(
+            name, tables, pos, width, share, ((lo, hi),), compare, 10)
+        _require(mode == ("staged" if share else "direct4"),
+                 f"{name}: variant {mode}")
+        max_err = max(max_err, err)
+        if share:
+            timings[name + " groups"] = _staged_groups(name, tables, pos)
+    del calls, tables, pos
+
+    # the variants off the fast way, each == plain bitwise
+    wide = STAGE_BYTES_MAX // 4 + 8
+    flat = torch.from_numpy(rng.uniform(
+        -1.0, 3840.0, size=64 * 2160 * 512 + 1).astype(np.float32)).to(device)
+    cases = (
+        ("t % 4 != 0", (1, 2160, 3840), flat[:64 * 2160 * 511].view(
+            64, 2160, 511), True, "direct1"),
+        ("unaligned positions", (1, 2160, 3840), flat[1:].view(
+            64, 2160, 512), True, "direct1"),
+        ("row wider than the staging budget", (1, 64, wide),
+         torch.from_numpy(rng.uniform(-1.0, wide, size=(9, 64, 512)).astype(
+             np.float32)).to(device), True, "direct4"),
+        ("per-row t % 4 != 0", (64, 512, 2160), flat[:64 * 512 * 509].view(
+            64, 512, 509).clamp_max(2160.0), False, "direct1"),
+    )
+    lines = []
+    for what, tshape, pos, share, want in cases:
+        tables = torch.from_numpy(
+            rng.normal(size=tshape).astype(np.float32)).to(device)
+        width = tshape[2]
+        n, r, t = pos.shape
+        plan = interp_plan(n, r, t, width, share, 0, width - 1,
+                           _kernels.smem_optin_bytes(device),
+                           pos.data_ptr() % 16 == 0)
+        _require(plan.mode == want, f"{what}: variant {plan.mode}, not {want}")
         for linear in (True, False):
-            for lo, hi in ((0, width - 1), roi):
+            for lo, hi in ((0, width - 1), (3, width // 2 + 1)):
                 k = interp_rows(tables, pos, width, linear, share, lo, hi)
                 p = interp_rows_plain(tables, pos, width, linear, share, lo,
                                       hi)
                 torch.cuda.synchronize()
                 _require(torch.equal(_bits(k), _bits(p)),
-                         f"interp_rows {name} linear={linear} [{lo}, {hi}]: "
-                         f"kernel != plain")
+                         f"interp_rows {what} linear={linear}: kernel != "
+                         f"plain")
                 max_err = max(max_err, float((k - p).abs().max()))
-                del k, p
-        ms = _cuda_ms(lambda: interp_rows(tables, pos, width, True, share),
-                      20)
-        plain_ms = _cuda_ms(
-            lambda: interp_rows_plain(tables, pos, width, True, share), 5)
-        # the tables and positions read once, the outputs written once;
-        # 6 operations per output (floor, frac, 1 - frac, two products,
-        # the sum)
-        bound = _bound(_nbytes(tables, pos, pos), 6 * pos.numel())
-        lib_ms = _grid_sample_ms(tables, pos) if share else None
-        timings[name] = (ms, plain_ms, bound, lib_ms)
-        gb = pos.numel() * 8 / 1e9
-        lib = ("" if lib_ms is None else
-               f", one F.grid_sample on a prebuilt grid {lib_ms:.3f} ms")
-        _phase("interp", f"{name} tables {list(tshape)} pos {list(pshape)}: "
-               f"bitwise equal (linear, nn; full row and [{roi[0]}, "
-               f"{roi[1]}]); kernel {ms:.3f} ms ({gb / ms:.3f} TB/s of "
-               f"positions + outputs), plain {plain_ms:.3f} ms, bound "
-               f"{bound[0]:.3f} ms by {bound[1]}{lib}")
+        ms = _cuda_ms(lambda: interp_rows(tables, pos, width, True, share), 5)
+        lines.append(f"{what} {list(pos.shape)}: {plan.mode} {ms:.4f} ms")
         del tables, pos
+    del flat
+    _phase("interp", "variants == plain bitwise (linear, nn; full row and "
+           "a ROI): " + "; ".join(lines))
     return max_err, timings
 
 
@@ -1070,39 +1341,49 @@ def phase_probe(device):
         ("probe", lambda: bench.probe_scale(x), "probe_scale_kernel"),
         ("torch.mul", lambda: torch.mul(x, 2.0), "elementwise"),
     ):
-        spans = _kernel_spans(fn, 100)
-        hit = [sp for sp in spans if key in sp[0]]
-        _require(len(hit) == 1 and hit[0][1] > 0,
-                 f"probe: expected one kernel *{key}* under the profiler, "
-                 f"got {spans}")
-        dev[name] = hit[0][2] / hit[0][1] * 1e-3
+        hit = _kernel_spans(fn, 100, (key,))
+        dev[name] = ("not measured" if hit is None else
+                     f"{hit[0][2] / hit[0][1]:.3f} us")
     _phase("probe", f"device durations (torch.profiler, mean of up to 100 "
-           f"launches each): "
-           f"probe_scale_kernel {dev['probe'] * 1e3:.3f} us, torch.mul's "
-           f"kernel {dev['torch.mul'] * 1e3:.3f} us")
+           f"launches each): probe_scale_kernel {dev['probe']}, torch.mul's "
+           f"kernel {dev['torch.mul']}")
     return float((k - p).abs().max()), ms, plain_ms, lib_ms, bound
 
 
-def _kernel_spans(fn, iters: int):
-    """[(kernel name, launches, total device microseconds)] of ``iters``
-    calls of ``fn`` under torch.profiler, after one warm-up call."""
+def _kernel_spans(fn, iters: int, keys, tries: int = 3):
+    """[(kernel name, launches, total device microseconds)] of the kernels
+    whose names hold one of ``keys``, over ``iters`` calls of ``fn`` under
+    torch.profiler after one warm-up call: one span per key, or None.
+
+    The profiler's device trace now and then comes back without the
+    kernels that ran (CUPTI drops the session's activity), so a session
+    that misses one is made again, up to ``tries`` times. These durations
+    are readings, not checks: None means "not measured"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            spans.append((e.key, e.count,
-                          float(e.self_cuda_time_total if us is None else us)))
-    return spans
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = []
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(k in e.key for k in keys)):
+                us = getattr(e, "self_device_time_total", None)
+                spans.append((e.key, e.count, float(
+                    e.self_cuda_time_total if us is None else us)))
+        if (len(spans) == len(keys) and all(sp[1] > 0 for sp in spans)
+                and all(any(k in sp[0] for sp in spans) for k in keys)):
+            return spans
+    _phase("profiler", f"torch.profiler recorded {len(spans)} of the "
+           f"{len(keys)} expected kernels ({', '.join(keys)}) in {tries} "
+           f"sessions: their device durations are not measured")
+    return None
 
 
 def _density_state(shape, density, device, seed=9):
@@ -1434,15 +1715,15 @@ def phase_sweep(device, n=1024, n_views=100):
         lambda: torch.cumsum(counts, dim=0, dtype=torch.int32), 5)
     scan_bound = _bound(_nbytes(counts, *k), 4 * counts.numel())
     # the host launches four small kernels per scan: what the card spends
-    spans = [sp for sp in _kernel_spans(
-        lambda: mc_fused.mc_scan(counts, tpp), 10) if "mc_scan" in sp[0]
-        or "mc_plane_counts" in sp[0]]
-    _require(len(spans) == 4 and all(sp[1] > 0 for sp in spans),
-             f"sweep: the scan should be four kernels, got {spans}")
+    spans = _kernel_spans(
+        lambda: mc_fused.mc_scan(counts, tpp), 10,
+        ("mc_scan_sums", "mc_scan_blocks", "mc_scan_offsets",
+         "mc_plane_counts"))
     # a kernel's mean over the launches the profiler kept (it may drop one)
-    scan_dev_ms = sum(sp[2] / sp[1] for sp in spans) * 1e-3
+    scan_dev = ("not measured" if spans is None else
+                f"{sum(sp[2] / sp[1] for sp in spans) * 1e-3:.4f} ms")
     _phase("sweep", f"{n}^3 scan pass over {counts.shape[0]} tiles: "
-           f"{scan_ms:.3f} ms per call from the host, {scan_dev_ms:.4f} ms "
+           f"{scan_ms:.3f} ms per call from the host, {scan_dev} "
            f"on the card over its four kernels (plain {scan_plain:.3f} ms, "
            f"one torch.cumsum {scan_lib:.3f} ms, bound {scan_bound[0]:.4f} "
            f"ms by {scan_bound[1]})")
@@ -2319,6 +2600,37 @@ def phase_two_ranks(ref_mesh, timeout_s: float = 300.0):
     return launches
 
 
+def interp_only(argv) -> int:
+    """``--interp-only [--compare-source FILE]``: phases 1, 2 and 6 alone,
+    then one JSON line of phase 6's times; with ``--compare-source``,
+    FILE (another kernel C source, e.g. an earlier commit's
+    csrc/interp_rows.cu) is built too and timed in turns with this kernel
+    C on the same inputs."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py")
+    p.add_argument("--interp-only", action="store_true", required=True)
+    p.add_argument("--compare-source", default=None, metavar="FILE")
+    args = p.parse_args(argv)
+    device, smi = phase_device()
+    phase_build()
+    compare = (None if args.compare_source is None
+               else _load_other_interp(args.compare_source))
+    _, timings = phase_interp(device, compare=compare)
+
+    def row(v):
+        if isinstance(v, dict):
+            return v
+        ms, plain_ms, bound, lib_ms, other_ms, whole = v
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "whole_table_bound_ms": whole[0],
+                "library_ms": lib_ms, "other_ms": other_ms}
+
+    print(smi)
+    print(json.dumps({"interp": {k: row(v) for k, v in timings.items()}}))
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--worker":
         # --worker RANK PORT DIR: one rank of phase 19
@@ -2329,6 +2641,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import torch
 
+    if len(sys.argv) > 1:
+        return interp_only(sys.argv[1:])
     device, smi = phase_device()
     phase_build()
     a_err, a_ms, a_plain, a_bound = phase_warp(device)
@@ -2366,7 +2680,7 @@ def main() -> int:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms}
 
-    c_ms, c_plain, c_bound, c_lib = c_times["pass1"]
+    c_ms, c_plain, c_bound, c_lib, _, _ = c_times["pass1"]
     kernels = [
         entry("warp_fused", "warp_fused.cu",
               "vacancy_tpu/ops/warp_fused.py:252",

@@ -366,3 +366,61 @@ def test_mesh_stats_match_jax():
     empty = tmesh.Mesh().calc_stats()
     assert (empty.bb_min > empty.bb_max).all()
     np.testing.assert_array_equal(empty.center, 0.0)
+
+
+@pytest.mark.parametrize("spec", GRIDS + [((-5.0, -4.0, -3.0), (7.0, 6.0, 5.0),
+                                           0.25)],
+                         ids=["turntable48", "bunny", "unit", "roundtrip"])
+def test_world_to_index_bitwise(spec):
+    """``GridSpec.world_to_index`` equals the JAX package's bit for bit on
+    random world points, and inverts ``axis_centers`` as the reference's
+    round-trip test requires (``tests/test_grid.py``)."""
+    jg, tg = jgrid.GridSpec(*spec), tgrid.GridSpec(*spec)
+    lo, hi = np.asarray(spec[0]), np.asarray(spec[1])
+    pts = np.random.default_rng(4).uniform(lo - 1, hi + 1, size=(257, 3))
+    got = tg.world_to_index(pts)
+    assert got.dtype == np.float32 and got.shape == (257, 3)
+    np.testing.assert_array_equal(got, jg.world_to_index(pts))
+    for axis in range(3):
+        c = tg.axis_centers(axis)
+        p = np.zeros((len(c), 3), np.float32)
+        p[:, axis] = c
+        np.testing.assert_allclose(tg.world_to_index(p)[:, axis],
+                                   np.arange(len(c)), atol=1e-3)
+
+
+def _bound_names(init_py):
+    """The names a package's ``__init__.py`` binds at its top level: its
+    imports, assignments, functions and classes (read with ``ast``, so
+    nothing of the package is imported)."""
+    import ast
+
+    names = set()
+    for node in ast.parse(init_py.read_text()).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+    return names
+
+
+def test_port_binds_every_name_the_reference_packages_bind():
+    """Each of the JAX package's ``__init__.py`` files (the package, ``io``,
+    ``ops``, ``parallel``, ``utils``): every name it binds is an attribute
+    of the port's package at the same path."""
+    import importlib
+    from pathlib import Path
+
+    ref = Path(jgrid.__file__).resolve().parent
+    inits = sorted(ref.rglob("__init__.py"))
+    assert len(inits) == 5
+    for init in inits:
+        rel = init.parent.relative_to(ref).parts
+        port = importlib.import_module(".".join(("vacancy_tpu_torch",) + rel))
+        missing = sorted(n for n in _bound_names(init)
+                         if not hasattr(port, n))
+        assert not missing, (port.__name__, missing)

@@ -1,11 +1,14 @@
 """The launch plans of the port's redesigned kernels, on the CPU.
 
-Kernel A (``csrc/warp_fused.cu``) and kernel B's scan (``csrc/mc_fused.cu``)
-run only on a card; what decides their launches is plain Python
-(``warp_fused.fused_plan``, ``mc_fused.scan_blocks``) or is small enough to
-emulate here in numpy and torch: the tiling must cover every voxel or tile
-exactly once, fit the card's shared memory and registers, and the blocked
-scan must be ``torch.cumsum``. The last tests hold ``warp_fuse_planes`` on
+Kernel A (``csrc/warp_fused.cu``), kernel B's scan (``csrc/mc_fused.cu``)
+and kernel C (``csrc/interp_rows.cu``) run only on a card; what decides
+their launches is plain Python (``warp_fused.fused_plan``,
+``mc_fused.scan_blocks``, ``warp_gather.interp_plan``) or is small enough
+to emulate here in numpy and torch: the tiling must cover every voxel,
+tile or output exactly once, fit the card's shared memory and registers,
+the blocked scan must be ``torch.cumsum``, and kernel C's indexing into
+its staged copy of a row (or straight into the row) must give
+``interp_rows_plain`` bit for bit. The last tests hold ``warp_fuse_planes`` on
 CPU tensors (its plain version) against the JAX package's
 ``warp_fuse_planes`` in interpret mode on shapes that straddle the new
 tiling, at test_torch_warp's bar: update_num differs on at most 1e-4 of
@@ -27,7 +30,8 @@ from vacancy_tpu.ops.warp_fused import _extend_centers
 from vacancy_tpu.ops.warp_fused import warp_fuse_planes as j_fuse_planes
 from vacancy_tpu_torch import config as tcfg
 from vacancy_tpu_torch import grid as tgrid
-from vacancy_tpu_torch.ops import mc_fused, warp_fused
+from vacancy_tpu_torch.ops import mc_fused, warp_fused, warp_gather
+from vacancy_tpu_torch.ops.warp_gather import interp_plan, interp_rows_plain
 
 H100_OPTIN = 232_448  # bytes of shared memory a block may opt into
 SM_REGISTERS = 65_536
@@ -240,3 +244,212 @@ def test_warp_fuse_planes_matches_jax_interpret_across_tiles(shape, rule,
     off = np.abs(ts[both] - js[both]) > 1e-5
     assert off.mean() <= (0.0 if linear else 2e-4), off.sum()
     assert (tu != un0).mean() > 0.05
+
+
+# (n, r, t, width, shared table, lo, hi): the UHD facade's two launches and
+# phase 6's, the blocked sweep's pass 1, ortho views, and the edges: t of 1
+# and 5, width 1, one plane more than a group, a row wider than the staging
+# budget, more planes than a grid's 65535
+INTERP_SHAPES = [
+    (512, 2160, 512, 3840, True, 0, 3839),
+    (512, 512, 512, 2160, False, 0, 2159),
+    (64, 2160, 512, 3840, True, 200, 3600),
+    (64, 512, 512, 2160, False, 100, 2000),
+    (128, 2160, 1024, 3840, True, 0, 3839),
+    (128, 192, 128, 192, True, 0, 191),
+    (3, 8, 1, 40, True, 0, 39),
+    (3, 8, 5, 40, False, 5, 30),
+    (4, 7, 16, 1, True, 0, 0),
+    (warp_gather.GROUP_MAX + 1, 4200, 8, 40, True, 1, 38),
+    (9, 3, 512, warp_gather.STAGE_BYTES_MAX // 4 + 8, True, 0, 12295),
+    (70000, 2, 4, 9, True, 2, 6),
+    (70000, 2, 4, 9, False, 2, 6),
+]
+
+
+def _plan_ids(shapes):
+    return ["{}x{}x{}w{}{}".format(*s[:4], "s" if s[4] else "p")
+            for s in shapes]
+
+
+def _plan_cover(plan, n, r, t):
+    """How often the kernel's walk over ``plan`` writes each output,
+    counted as [n, r] (the CTAs over planes and rows) and [k, t] (one CTA's
+    items over its k planes or rows and the t outputs of each), both
+    walked as csrc/interp_rows.cu walks them."""
+    gx, gy = plan.grid
+    per_row = np.zeros((n, r), np.int64)
+    if plan.mode == "staged":
+        assert gx == r and plan.rows == 1
+        for by in range(gy):
+            per_row[by * plan.group:min(n, (by + 1) * plan.group)] += 1
+        k = plan.group
+    else:
+        assert plan.group == 1
+        for bx in range(gx):
+            # blockIdx.y strides over the planes past the grid's 65535
+            for by in range(gy):
+                per_row[by::gy, bx * plan.rows:(bx + 1) * plan.rows] += 1
+        k = plan.rows
+    # one CTA's items: j -> (plane or row j // tq, lanes (j % tq) * vec + v)
+    tq = t // plan.vec
+    items = np.arange(k * tq)
+    lanes = ((items // tq * t + items % tq * plan.vec)[:, None]
+             + np.arange(plan.vec)[None, :]).reshape(-1)
+    return per_row, np.bincount(lanes, minlength=k * t).reshape(k, t)
+
+
+@pytest.mark.parametrize("shape", INTERP_SHAPES, ids=_plan_ids(INTERP_SHAPES))
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "unaligned"])
+def test_interp_plan_covers_every_output_once_and_fits(shape, aligned):
+    n, r, t, width, share, lo, hi = shape
+    plan = interp_plan(n, r, t, width, share, lo, hi, H100_OPTIN, aligned)
+    gx, gy = plan.grid
+    assert 1 <= gy <= warp_gather.MAX_GRID_Y and gx >= 1
+    assert plan.vec == (4 if aligned and t % 4 == 0 else 1)
+    per_row, per_t = _plan_cover(plan, n, r, t)
+    assert (per_row == 1).all() and (per_t == 1).all()
+    # shared memory: 48 KB without an opt-in, and the H100's opt-in
+    assert plan.smem_bytes <= min(48 * 1024, H100_OPTIN)
+    if plan.mode == "staged":
+        assert share and aligned and t % 4 == 0
+        assert plan.stage_lo == lo - lo % 4 and plan.smem_bytes % 16 == 0
+        assert plan.smem_bytes >= 4 * (hi + 1 - plan.stage_lo)
+        # the 16-byte chunks of a row of a multiple of 4 taps end in it
+        if width % 4 == 0:
+            assert plan.stage_lo + plan.smem_bytes // 4 <= width
+        assert plan.group * (t // 4) <= warp_gather.MAX_ITEMS
+        ctas = gx * gy
+        assert ctas >= min(warp_gather.MIN_CTAS, r * n // plan.group) or (
+            plan.group == 1)
+        assert plan.group <= warp_gather.GROUP_MAX
+    else:
+        assert plan.smem_bytes == 0
+        assert plan.rows * (t // plan.vec) <= max(warp_gather.DIRECT_ITEMS,
+                                                  t // plan.vec)
+    # registers: the budget lets four CTAs of 256 threads share an SM, and
+    # so does a staged row's shared memory
+    assert SM_REGISTERS // (warp_gather.REGISTER_BUDGET
+                            * warp_gather.THREADS) == 4
+    assert 4 * (warp_gather.STAGE_BYTES_MAX + 1024) <= 233_472
+
+
+def test_interp_plan_takes_the_direct_gather_off_the_fast_way():
+    """Wide rows, ragged or unaligned t and per-row tables take the direct
+    variants; the facade's launches take the staged and direct4 ones."""
+    uhd = (512, 2160, 512, 3840, True, 0, 3839)
+    assert interp_plan(*uhd, H100_OPTIN, True).mode == "staged"
+    assert interp_plan(*uhd, H100_OPTIN, True).group == 512
+    assert interp_plan(*uhd, H100_OPTIN, True).grid == (2160, 1)
+    # phase 6's 64 planes: one group; four planes of 192 rows: groups of 1
+    assert interp_plan(64, 2160, 512, 3840, True, 0, 3839, H100_OPTIN,
+                       True).grid == (2160, 1)
+    assert interp_plan(4, 192, 128, 192, True, 0, 191, H100_OPTIN,
+                       True).grid == (192, 4)
+    assert interp_plan(*uhd, H100_OPTIN, False).mode == "direct1"
+    assert interp_plan(512, 2160, 511, 3840, True, 0, 3839, H100_OPTIN,
+                       True).mode == "direct1"
+    assert interp_plan(512, 512, 512, 2160, False, 0, 2159, H100_OPTIN,
+                       True).mode == "direct4"
+    wide = warp_gather.STAGE_BYTES_MAX // 4 + 1
+    assert interp_plan(4, 8, 16, wide, True, 0, wide - 1, H100_OPTIN,
+                       True).mode == "direct4"
+    # the taps, not the row, are staged: a ROI of a wide row fits
+    assert interp_plan(4, 8, 16, wide, True, 100, 4000, H100_OPTIN,
+                       True).mode == "staged"
+    # a card that could not opt into the row's bytes
+    assert interp_plan(*uhd, 8 * 1024, True).mode == "direct4"
+    with pytest.raises(ValueError, match="empty"):
+        interp_plan(0, 8, 16, 40, True, 0, 39, H100_OPTIN, True)
+    with pytest.raises(ValueError, match="taps"):
+        interp_plan(2, 8, 16, 40, True, 0, 40, H100_OPTIN, True)
+
+
+def _taps_from(row, off, idx):
+    """Taps ``idx`` of a row held from tap ``off`` on (``row[idx - off]``)."""
+    return row[idx - off]
+
+
+def _sample_staged(row, off, pos, lo, hi, linear):
+    """csrc/interp_rows.cu's ``sample`` on one row, in torch."""
+    if linear:
+        p0f = torch.floor(pos)
+        frac = pos - p0f
+        p0 = p0f.to(torch.int64).clamp(lo, hi)
+        p1 = torch.clamp_max(p0 + 1, hi)
+        a = (1.0 - frac) * _taps_from(row, off, p0)
+        b = frac * _taps_from(row, off, p1)
+        return a + b
+    p = torch.floor(pos + 0.5).to(torch.int64).clamp(lo, hi)
+    return _taps_from(row, off, p)
+
+
+def _emulate_interp(plan, tables, pos, width, share, lo, hi, linear):
+    """Kernel C's launch of ``plan`` in torch: staged, each CTA copies its
+    row's taps from ``stage_lo`` into a buffer of ``smem_bytes`` and samples
+    it at ``p - stage_lo`` for its group of planes; direct, each CTA
+    samples its rows where they lie in the flat tables."""
+    n, r, t = pos.shape
+    out = torch.full_like(pos, float("nan"))
+    gx, gy = plan.grid
+    if plan.mode == "staged":
+        for bx in range(gx):
+            src = tables[0, bx, plan.stage_lo:plan.stage_lo
+                         + plan.smem_bytes // 4]
+            staged = torch.zeros(plan.smem_bytes // 4)
+            staged[:src.numel()] = src
+            for by in range(gy):
+                g = slice(by * plan.group, (by + 1) * plan.group)
+                out[g, bx] = _sample_staged(staged, plan.stage_lo,
+                                            pos[g, bx], lo, hi, linear)
+        return out
+    flat = tables.reshape(-1)
+    for by in range(gy):
+        for nn in range(by, n, gy):
+            for bx in range(gx):
+                r0 = bx * plan.rows
+                for lr in range(min(plan.rows, r - r0)):
+                    base = ((0 if share else nn * r) + r0 + lr) * width
+                    out[nn, r0 + lr] = _sample_staged(
+                        flat, -base, pos[nn, r0 + lr], lo, hi, linear)
+    return out
+
+
+ROW_CASES = [
+    (5, 6, 16, 40, True, 0, 39, True),
+    (5, 6, 16, 40, True, 5, 30, True),
+    (5, 6, 16, 42, True, 3, 41, True),  # a row that is not 16-byte aligned
+    (5, 6, 16, 40, False, 0, 39, True),
+    (5, 6, 16, 40, False, 7, 22, True),
+    (3, 6, 13, 40, True, 2, 33, True),
+    (3, 6, 16, 40, True, 0, 39, False),
+    (3, 5, 12, 1, True, 0, 0, True),
+]
+
+
+@pytest.mark.parametrize("case", ROW_CASES,
+                         ids=[f"{'x'.join(map(str, c[:4]))}-"
+                              f"{'s' if c[4] else 'p'}-{c[5]}-{c[6]}-"
+                              f"{'a' if c[7] else 'u'}" for c in ROW_CASES])
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "nn"])
+def test_kernel_c_indexing_equals_plain(case, linear):
+    """The kernel's indexing, emulated launch by launch: the staged copy
+    read at ``p - stage_lo`` (shared tables) or the row read in place
+    (direct), for the full row and a ROI, equals ``interp_rows_plain`` bit
+    for bit; positions run past both ends of the row."""
+    n, r, t, width, share, lo, hi, aligned = case
+    rng = np.random.default_rng(n * 100 + width)
+    tables = torch.from_numpy(rng.normal(
+        size=(1 if share else n, r, width)).astype(np.float32))
+    pos = torch.from_numpy(rng.uniform(-1.0, width, size=(n, r, t)).astype(
+        np.float32))
+    pos[..., 0], pos[..., -1] = -1.0, float(width)
+    pos[0, 0, 1 % t] = width - 0.5  # NN rounds half up, into the clamp
+    plan = interp_plan(n, r, t, width, share, lo, hi, H100_OPTIN, aligned)
+    want = "staged" if share and aligned and t % 4 == 0 else (
+        "direct4" if aligned and t % 4 == 0 else "direct1")
+    assert plan.mode == want
+    got = _emulate_interp(plan, tables, pos, width, share, lo, hi, linear)
+    ref = interp_rows_plain(tables, pos, width, linear, share, lo, hi)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))

@@ -19,7 +19,8 @@ import torch
 from vacancy_tpu_torch import _kernels, bench, profile_turntable
 from vacancy_tpu_torch import config as cfg
 from vacancy_tpu_torch.grid import GridSpec, VoxelGridState
-from vacancy_tpu_torch.ops import fusion_warp, mc_fused, warp_fused
+from vacancy_tpu_torch.ops import (fusion_warp, mc_fused, warp_fused,
+                                   warp_gather)
 from vacancy_tpu_torch.ops.warp_fused import warp_fuse_planes_plain
 from vacancy_tpu_torch.ops.warp_gather import interp_rows, interp_rows_plain
 from vacancy_tpu_torch.ops.sdf2d import make_signed_distance_field
@@ -423,6 +424,73 @@ def test_interp_rows_kernel_equals_plain_on_gpu(cuda_device, share, linear,
     torch.cuda.synchronize()
     assert interp_rows.launches == before + 1
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+# (n, r, t, width, shared, lo, hi, unaligned positions): kernel C at the
+# edges of its plan: t of 1, 5 and 512, width 1, one plane more than a
+# staged group, a shared row wider than the staging budget, positions one
+# float off 16-byte alignment, per-row tables
+C_EDGES = {
+    "t1": (3, 8, 1, 40, True, 0, 39, False),
+    "t5": (3, 8, 5, 40, True, 2, 33, False),
+    "t512": (9, 70, 512, 3840, True, 0, 3839, False),
+    "t512-roi": (9, 70, 512, 3840, True, 201, 3601, False),
+    "width1": (4, 7, 16, 1, True, 0, 0, False),
+    "width1-per-row": (4, 7, 16, 1, False, 0, 0, False),
+    "group+1": (warp_gather.GROUP_MAX + 1, 4200, 8, 42, True, 3, 41, False),
+    "wide-row": (5, 6, 64, warp_gather.STAGE_BYTES_MAX // 4 + 8, True, 0,
+                 warp_gather.STAGE_BYTES_MAX // 4 + 7, False),
+    "unaligned": (6, 9, 64, 100, True, 0, 99, True),
+    "per-row": (6, 9, 64, 2160, False, 100, 2000, False),
+    "per-row-t13": (6, 9, 13, 50, False, 0, 49, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "nn"])
+@pytest.mark.parametrize("case", list(C_EDGES))
+def test_interp_rows_kernel_edges_equal_plain_on_gpu(cuda_device, case,
+                                                     linear):
+    """Every variant of kernel C's plan (staged, direct4, direct1) equals
+    the plain version bit for bit at its edges, with positions at -1 and
+    at ``width`` and half-pixel positions for the NN rounding."""
+    n, r, t, w, share, lo, hi, unaligned = C_EDGES[case]
+    tables, pos = _rows_case(share, cuda_device, n, r, w, t)
+    if unaligned:
+        buf = torch.empty(pos.numel() + 1, device=cuda_device)
+        buf[1:].copy_(pos.reshape(-1))
+        pos = buf[1:].view(n, r, t)
+    pos[0, 0, :] = torch.arange(t, device=cuda_device) * 0.5 - 0.5
+    plan = warp_gather.interp_plan(
+        n, r, t, w, share, lo, hi, _kernels.smem_optin_bytes(cuda_device),
+        pos.data_ptr() % 16 == 0)
+    want = ("direct1" if unaligned or t % 4 else
+            "staged" if share and case != "wide-row" else "direct4")
+    assert plan.mode == want
+    before = interp_rows.launches
+    k = interp_rows(tables, pos, w, linear, share, lo, hi)
+    p = interp_rows_plain(tables, pos, w, linear, share, lo, hi)
+    torch.cuda.synchronize()
+    assert interp_rows.launches == before + 1
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_interp_rows_constants_match_the_build_on_gpu(cuda_device):
+    """The built kernel's launch constants are ops/warp_gather.py's, and
+    the C entry point refuses a plan it cannot take."""
+    warp_gather._check_tiling()
+    lib = _kernels.load()
+    assert 0 < lib.vt_interp_tiling(3) <= warp_gather.REGISTER_BUDGET
+    tables, pos = _rows_case(False, cuda_device, t=16)
+    out = torch.empty_like(pos)
+    stream = _kernels.stream_ptr(cuda_device)
+    args = (tables.data_ptr(), pos.data_ptr(), out.data_ptr(), 3, 8, 16, 40)
+    # staged with per-row tables, a group of 0, rows of 0
+    assert lib.vt_interp_rows(*args, 0, 1, 0, 39, 0, 1, 1, stream) != 0
+    assert lib.vt_interp_rows(*args, 1, 1, 0, 39, 0, 0, 1, stream) != 0
+    assert lib.vt_interp_rows(*args, 0, 1, 0, 39, 1, 1, 0, stream) != 0
+    assert lib.vt_interp_rows(*args, 0, 1, 0, 39, 1, 1, 2, stream) == 0
 
 
 @pytest.mark.cuda

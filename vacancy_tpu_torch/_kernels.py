@@ -40,7 +40,8 @@ _SIGNATURES = {
     "vt_warp_fuse_planes": [_P] * 10 + [_I] * 15 + [_F, _F, _I, _I, _P],
     "vt_warp_tiling": [_I],
     "vt_warp_ctas_per_sm": [_I],
-    "vt_interp_rows": [_P] * 3 + [_I] * 8 + [_P],
+    "vt_interp_rows": [_P] * 3 + [_I] * 11 + [_P],
+    "vt_interp_tiling": [_I],
     "vt_mc_tiles": [_I, _I],
     "vt_mc_count": [_P] * 5 + [_I] * 3 + [_F, _I, _IP] + [_P] * 2,
     "vt_mc_scan_blocks": [_I],
@@ -152,6 +153,15 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a non-zero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{what} failed with cudaError_t {err}")
+
+
+def smem_optin_bytes(device) -> int:
+    """The shared memory a block on CUDA ``device`` may opt into, as the
+    card reports it (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    import torch
+
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
 
 
 def stream_ptr(device) -> int:

@@ -94,6 +94,14 @@ class GridSpec:
         zz, yy, xx = torch.meshgrid(cz, cy, cx, indexing="ij")
         return torch.stack([xx, yy, zz], dim=-1)
 
+    def world_to_index(self, points: np.ndarray) -> np.ndarray:
+        """Continuous voxel index of world points (inverse of axis_centers)."""
+        points = np.asarray(points, np.float32)
+        n = np.asarray(self.voxel_num, np.float32)
+        diff = self.diff
+        offset = np.float32(self.resolution) * np.float32(0.5)
+        return (points - np.asarray(self.bb_min, np.float32) - offset) * n / diff
+
 
 @dataclasses.dataclass
 class VoxelGridState:

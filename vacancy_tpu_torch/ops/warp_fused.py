@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _kernels
+from .._kernels import smem_optin_bytes
 from ..config import UpdateOutsideImage, VoxelUpdate, VoxelUpdateOption
 from . import fusion_warp  # which imports this module: use at call time
 from .fusion import truncation_threshold
@@ -113,13 +114,6 @@ def _check_tiling() -> None:
             0 < got[4] <= REGISTER_BUDGET):
         raise RuntimeError(f"csrc/warp_fused.cu's tiling {got} differs from "
                            f"ops/warp_fused.py's")
-
-
-def smem_optin_bytes(device: torch.device) -> int:
-    """The shared memory a block on CUDA ``device`` may opt into, as the
-    card reports it (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
-    props = torch.cuda.get_device_properties(device)
-    return props.shared_memory_per_block_optin
 
 
 def warp_fuse_planes_plain(

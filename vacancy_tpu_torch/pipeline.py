@@ -3,7 +3,7 @@ reference's examples.cc).
 
     python -m vacancy_tpu_torch.pipeline turntable --n 512 --views 36 --out DIR
     python -m vacancy_tpu_torch.pipeline sweep --n 1024 --views 100 --out DIR
-    python -m vacancy_tpu_torch.pipeline bunny --out DIR   # needs VACANCY_DATA
+    python -m vacancy_tpu_torch.pipeline bunny --out DIR   # reads VACANCY_DATA
     python -m vacancy_tpu_torch.pipeline sweep --n 1024 --views 100 --mesh-shape 4
 
 ``turntable`` (BASELINE config 4) renders silhouettes of a sphere-union
@@ -14,9 +14,10 @@ marching-cubes kernel, and writes a binary PLY. ``sweep`` (BASELINE config
 5) is the same scene at 1024^3 x 100 views on one card: the carve runs
 z-chunked and in place (``carve_views_warp_blocked``), and cold and warm
 times of carve and extract are reported. ``bunny`` is the examples.cc
-sequence on the six views under ``VACANCY_DATA``, with ``--checkpoint``
-and ``--resume``. Each prints one JSON line. The device defaults to
-``cuda``; ``--device cpu`` runs the kernels' plain versions instead.
+sequence on the six views under ``VACANCY_DATA`` (by default the
+checkout's ``data/``), with ``--checkpoint`` and ``--resume``. Each prints
+one JSON line. The device defaults to ``cuda``; ``--device cpu`` runs the
+kernels' plain versions instead.
 
 ``turntable --sharded`` and ``sweep`` (unless ``--no-sharded``) cut the
 grid into blocks over a block mesh (``parallel/``): one block per card by
@@ -84,14 +85,17 @@ BUNNY_INTRINSICS = dict(
 )
 
 
-def data_dir() -> str:
+# where the bunny sequence is read from when VACANCY_DATA is unset
+DEFAULT_DATA_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+
+
+def default_data_dir() -> str:
     """The directory of the bunny sequence (``tumpose.txt``,
-    ``mask_0000N.png``, ``GT.ply``): the ``VACANCY_DATA`` variable."""
-    d = os.environ.get("VACANCY_DATA")
-    if not d:
-        raise RuntimeError("the bunny pipelines read their six views from "
-                           "the directory named by VACANCY_DATA")
-    return d
+    ``mask_0000N.png``, ``GT.ply``): the ``VACANCY_DATA`` variable, read at
+    each call, else ``DEFAULT_DATA_DIR``. A directory without the files
+    fails where they are read, as the JAX package's ``DATA_DIR`` does."""
+    return os.environ.get("VACANCY_DATA") or DEFAULT_DATA_DIR
 
 
 def turntable_grid(n: int) -> GridSpec:
@@ -383,10 +387,10 @@ def run_sweep(
     return out
 
 
-def load_bunny(device="cuda"):
+def load_bunny(data_dir: Optional[str] = None, device="cuda"):
     """(six cameras on ``device``, uint8 masks [6, 240, 320]) of the
-    bunny sequence under ``data_dir()``."""
-    d = data_dir()
+    bunny sequence under ``data_dir`` (default: ``default_data_dir()``)."""
+    d = default_data_dir() if data_dir is None else data_dir
     poses = load_tum_poses(os.path.join(d, "tumpose.txt"))
     masks = np.stack(
         [load_mask(os.path.join(d, f"mask_{i:05d}.png")) for i in range(6)]
@@ -446,7 +450,7 @@ def run_bunny(
     sampling) or "warp" (the warp engine). With ``checkpoint`` the state
     is saved after every view; ``resume`` picks up after the last one."""
     device = torch.device(device)
-    cams, masks = load_bunny(device)
+    cams, masks = load_bunny(device=device)
     option = bunny_option(
         resolution=resolution,
         tsdf=tsdf,
@@ -505,7 +509,7 @@ def run_bunny(
     if out_dir:
         mesh.write_ply(os.path.join(out_dir, "final_surface.ply"))
     if chamfer_gt:
-        gt = Mesh.load_ply(os.path.join(data_dir(), "GT.ply"))
+        gt = Mesh.load_ply(os.path.join(default_data_dir(), "GT.ply"))
         ch, a, b = chamfer_distance(mesh, gt)
         diag = bbox_diagonal(gt)
         results["chamfer"] = ch
@@ -520,7 +524,7 @@ def run_bunny_batched(resolution: float = 10.0, tsdf: bool = False,
                       device="cuda") -> dict:
     """All six views fused in one ``carve_batch`` call."""
     device = torch.device(device)
-    cams, masks = load_bunny(device)
+    cams, masks = load_bunny(device=device)
     carver = VoxelCarver(bunny_option(resolution=resolution, tsdf=tsdf),
                          device)
     if not carver.init():
@@ -530,7 +534,7 @@ def run_bunny_batched(resolution: float = 10.0, tsdf: bool = False,
     _sync(device)
     carve_s = time.perf_counter() - t0
     mesh = carver.extract_iso_surface(0.0)
-    gt = Mesh.load_ply(os.path.join(data_dir(), "GT.ply"))
+    gt = Mesh.load_ply(os.path.join(default_data_dir(), "GT.ply"))
     ch, _, _ = chamfer_distance(mesh, gt)
     return {
         "grid": list(carver.grid.voxel_num),
@@ -546,7 +550,8 @@ def main(argv=None) -> dict:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     b = sub.add_parser("bunny", help="bundled 6-view bunny (examples.cc); "
-                       "reads the directory named by VACANCY_DATA")
+                       "reads the directory named by VACANCY_DATA (default: "
+                       "the checkout's data/)")
     b.add_argument("--out", default=None)
     b.add_argument("--resolution", type=float, default=10.0)
     b.add_argument("--grid-n", type=int, default=None,
