@@ -33,11 +33,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      two UHD shapes with random positions (pass 1: a shared 2160 x 3840
      image, positions [64, 2160, 512]; pass 2: tables [64, 512, 2160],
      positions [64, 512, 512]), linear and NN, full row and a ROI; at the
-     UHD facade's own two launches for one view (pass 1 [512, 2160, 512]
-     at u_eq, pass 2 [512, 512, 512] at v*), each beside its bound, the
-     plain version and one F.grid_sample; the variants off the fast way
-     (t % 4 != 0, unaligned positions, a row wider than the staging
-     budget); the staged variant at 8 to 64 planes per CTA.
+     two launches the two-pass engine makes for view 0 of the UHD facade
+     (pass 1 [512, 2160, 512] at u_eq, pass 2 [512, 512, 512] at v*), each
+     beside its bound, the plain version and one F.grid_sample; the
+     variants off the fast way (t % 4 != 0, unaligned positions, a row
+     wider than the staging budget); the staged variant at 8 to 64 planes
+     per CTA.
   7. the two-pass engine through interp_rows vs the fused warp kernel on
      the 128^3 x 8 turntable (240 rows): update_num exact, sdf bitwise;
      both timed.
@@ -45,20 +46,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      views of 3840 x 2160 into 512^3 (WAVG, band 0.05, bilinear), then
      extract_iso_surface, extract_voxel and a binary PLY read-back. The
      counters are reset after a warm-up carve, just before the timed one,
-     and read after the extracts: interp_rows 72 (two per view), MC 1,
-     the fused warp kernel 0 (2160 rows exceed its shared memory). Then
-     the carve against the plain two-pass fold (bitwise) and plain MC (as
-     many vertices).
+     and read after the iso-surface extract: the fused warp kernel 1, MC 1,
+     interp_rows 0. Then, on the same 36 SDFs into the empty grid, the
+     carve against the two-pass engine with interp_rows (72 launches,
+     counted from 0) and against the plain fold, both bitwise, and plain MC
+     (as many vertices); the fused kernel alone timed at that shape beside
+     its bound, the two-pass engine and the plain fold; the carve again
+     with the SDF images returned through pageable memory and staged
+     through two page-locked buffers, in turns, every result kept, and the
+     host's resident, locked and page-locked bytes before and after.
   9. 128^3 x 8 orthographic views of 192 rows: the fused warp kernel with
      orthographic rows vs its plain version (update_num exact, sdf bitwise)
      for MAX/WAVG x NN/bilinear; the two-pass engine (interp_rows and the
      behind-camera mask from the real z rows) vs the same plain fold,
      bitwise, and both timed; the facade launches the fused kernel and not
-     interp_rows for them, and interp_rows for a 2160-row orthographic
-     view, whose state is held against the plain fold too; a rolled ortho
-     camera on the exact engine (neither counter moves); the exact engine
-     vs the warp engine at 256^3 x 8 turntable views (the JAX package's
-     test_warp_close_to_exact bar).
+     interp_rows for them and for a 2160-row orthographic view, whose
+     state is held against the two-pass engine and the plain fold too; a
+     rolled ortho camera on the exact engine (neither counter moves); the
+     exact engine vs the warp engine at 256^3 x 8 turntable views (the JAX
+     package's test_warp_close_to_exact bar).
  10. the probe kernel vs its plain version, bitwise; its first launch
      timed; the device durations of its kernel and of torch.mul's kernel
      (torch.profiler) beside the host-bracketed means.
@@ -80,9 +86,14 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      the fused warp kernel's time per chunk and the MC passes' times, each
      beside the parent's, its bound and its launches on the sweep; the
      share of non-empty tiles.
- 13. the z-chunked two-pass engine: 1024^3 x 2 views of 3840 x 2160 through
-     carve_views_warp_blocked (interp_rows twice per view and chunk); peak
-     memory under the unchunked estimate; one chunk == the plain fold.
+ 13. the z-chunked carve of UHD views: 1024^3 x 2 views of 3840 x 2160
+     through carve_views_warp_blocked, on the fused warp kernel (once per
+     chunk, interp_rows 0), then on the two-pass engine (interp_rows 32
+     times, counted from 0, the fused kernel never), which the dispatch
+     picks by shape when the card's shared-memory opt-in is swapped for
+     one too small for the fused kernel's plan; each peak under the
+     unchunked two-pass estimate; the two states equal bitwise; one chunk
+     == the plain fold.
  14. the bench entry point in process: one JSON line, every key present and
      no value null; the probe kernel launched once.
  15. extract_mesh(engine="xla") == engine="fused" byte for byte on the 256^3
@@ -121,8 +132,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      a (2,) mesh; rank 0's meshes == phase 5's byte for byte, rank 1 gets
      None; the line names the transport. A worker that fails, or is not
      done after 300 s, fails the run.
-Then one JSON line of per-kernel results, and as the last line
-{"ok": true, "device": {...}}. No JAX is imported.
+Then one JSON line of per-kernel results (A's, B's and the scan's
+launches summed over phases 12 and 17; C's from phase 13's two-pass run
+of carve_views_warp_blocked, its path in this script since the fused warp
+kernel takes the UHD views), and as the last line {"ok": true, "device":
+{...}}. No JAX is imported.
 
     python3 chip_smoke.py --interp-only [--compare-source FILE]
 
@@ -203,13 +217,16 @@ WARP_OPS_PER_FUSION = 48
 WARP_OPS_PER_PASS1 = 30
 
 
-def _warp_bound(sdf, un, imgs, n_views):
+def _warp_bound(sdf, un, imgs, n_views, linear=True):
+    """Kernel A's bound. Pass 1 is counted only over the rows a (z, x)
+    column of voxels can tap: each voxel taps two rows (bilinear) or one,
+    so a column of ny voxels needs at most min(h, 2 ny) rows."""
     nz, ny, nx = sdf.shape
-    h = imgs.shape[1]
+    rows = min(imgs.shape[1], (2 if linear else 1) * ny)
     return _bound(
         2 * _nbytes(sdf, un) + _nbytes(imgs),
         n_views * (sdf.numel() * WARP_OPS_PER_FUSION
-                   + nz * h * nx * WARP_OPS_PER_PASS1))
+                   + nz * rows * nx * WARP_OPS_PER_PASS1))
 
 
 def phase_device():
@@ -703,14 +720,18 @@ def _interp_bound(tables, pos, share, lo, hi):
 
 def _facade_launches(device):
     """Kernel C's two launches for view 0 of the UHD facade (512^3, 3840 x
-    2160, WAVG, band 0.05, bilinear), as the facade makes them: the
-    two-pass engine's sampler is swapped for one that records its
+    2160, WAVG, band 0.05, bilinear), as the two-pass engine makes them:
+    the facade sends such views to kernel A, so its own SDF image and
+    camera go through ``warp_fold`` with a sampler that records its
     arguments and calls interp_rows. Returns [(tables, pos, width,
     linear, share, lo, hi)] for pass 1 and pass 2."""
     import torch
 
     from vacancy_tpu_torch import VoxelCarver
-    from vacancy_tpu_torch.ops import fusion_warp
+    from vacancy_tpu_torch.camera import stack_cameras
+    from vacancy_tpu_torch.config import SdfInterpolation
+    from vacancy_tpu_torch.grid import VoxelGridState
+    from vacancy_tpu_torch.ops.fusion_warp import warp_fold
     from vacancy_tpu_torch.ops.warp_gather import interp_rows
     from vacancy_tpu_torch.pipeline import facade_inputs
 
@@ -723,13 +744,17 @@ def _facade_launches(device):
 
     carver = VoxelCarver(opt, device)
     _require(carver.init(), "VoxelCarver.init")
-    fusion_warp.interp_rows = record
-    try:
-        carver.carve_batch(cams, masks, engine="warp")
-    finally:
-        fusion_warp.interp_rows = interp_rows
+    imgs = torch.from_numpy(carver.carve_batch(cams, masks, engine="warp"))
+    cam = stack_cameras(cams)
+    st = VoxelGridState.create(carver.grid, device)
+    uopt = opt.update_option
+    warp_fold(st.sdf, st.update_num,
+              *(carver.grid.axis_centers_t(a, device) for a in range(3)),
+              cam.w2c, cam.principal_point, cam.focal_length,
+              imgs.to(device), uopt,
+              uopt.sdf_interp == SdfInterpolation.BILINEAR, None, record)
     torch.cuda.synchronize()
-    del carver
+    del carver, st
     _require(len(calls) == 2, f"the facade's view made {len(calls)} calls")
     return calls
 
@@ -1014,23 +1039,63 @@ def phase_two_pass(device):
     return two_ms, fused_ms
 
 
+def _host_memory() -> dict:
+    """The process's resident and locked host memory (/proc/self/status),
+    and the page-locked bytes PyTorch's host cache holds where this torch
+    reports them."""
+    import torch
+
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key in ("VmRSS", "VmLck", "VmPin"):
+                out[key] = value.strip()
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is not None:
+        keep = ("allocated_bytes.current", "reserved_bytes.current",
+                "reserved_bytes.peak")
+        out.update({k: v for k, v in stats().items() if k in keep})
+    return out
+
+
+def _timed_carve(carver, cams, masks):
+    """(SDF images, seconds) of one carve_batch(engine="warp") into the
+    empty grid, on the host clock, ending in a synchronize."""
+    import torch
+
+    _require(carver.init(), "VoxelCarver.init")  # the empty grid again
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imgs = carver.carve_batch(cams, masks, engine="warp")
+    torch.cuda.synchronize()
+    return imgs, time.perf_counter() - t0
+
+
 def phase_facade(device, n_views=36):
-    """The slice at full size through the facade: 36 UHD views of the
-    turntable blob into 512^3 (WAVG, band 0.05, bilinear). 2160 rows are
-    more than the fused warp kernel takes, so the carve runs the two-pass
-    engine with kernel C. After a warm-up carve the launch counters are
-    reset just before the timed carve and read after its extracts: kernel
-    C twice per view, MC once, the fused warp kernel never. Then the carve
-    against the plain two-pass fold and MC against its plain version on
-    the same 36 SDFs into the empty grid."""
+    """The UHD facade at full size: 36 views of 3840 x 2160 of the
+    turntable blob into 512^3 (WAVG, band 0.05, bilinear). Kernel A takes
+    2160-row views. After a warm-up carve the launch counters are reset
+    just before the timed carve and read after its extracts: A once, MC
+    once, kernel C never. Then, on the same 36 SDFs
+    into the empty grid: the carve against the two-pass engine with
+    kernel C (its 72 launches, counted from 0, are C's path in this
+    script) and against the plain fold, update_num exact and sdf bitwise,
+    and MC against its plain version; A alone timed with CUDA events
+    beside its bound and the two-pass engine's and the plain fold's times
+    on the same inputs; and the carve again with the SDF images returned
+    through pageable memory and staged through page-locked buffers, in
+    turns, every result kept, with the host's memory before and after."""
     import numpy as np
     import torch
 
     from vacancy_tpu_torch import VoxelCarver
+    from vacancy_tpu_torch import carver as carver_mod
     from vacancy_tpu_torch.camera import stack_cameras
     from vacancy_tpu_torch.grid import VoxelGridState
     from vacancy_tpu_torch.mesh import Mesh
     from vacancy_tpu_torch.ops import mc_fused, warp_fused, warp_gather
+    from vacancy_tpu_torch.ops.fusion_warp import warp_fold
     from vacancy_tpu_torch.pipeline import facade_inputs
 
     opt, cams, masks = facade_inputs(512, n_views, 3840, 2160, device)
@@ -1039,18 +1104,17 @@ def phase_facade(device, n_views=36):
                 warp_gather.interp_rows)
     carver = VoxelCarver(opt, device)
     _require(carver.init(), "VoxelCarver.init")
-    carver.carve_batch(cams, masks, engine="warp")  # warm-up
+    warm = carver.carve_batch(cams, masks, engine="warp")
     torch.cuda.synchronize()
-    _require(carver.init(), "VoxelCarver.init")  # the empty grid again
     for c in counters:
         c.launches = 0
-    t0 = time.perf_counter()
-    imgs = carver.carve_batch(cams, masks, engine="warp")
-    torch.cuda.synchronize()
-    carve_s = time.perf_counter() - t0
+    imgs, carve_s = _timed_carve(carver, cams, masks)
     t0 = time.perf_counter()
     mesh = carver.extract_iso_surface()
     extract_s = time.perf_counter() - t0
+    launches = {"warp_fused": counters[0].launches,
+                "mc_fused": counters[1].launches,
+                "interp_rows": counters[2].launches}
     t0 = time.perf_counter()
     voxels = carver.extract_voxel()
     voxel_s = time.perf_counter() - t0
@@ -1058,13 +1122,12 @@ def phase_facade(device, n_views=36):
         path = os.path.join(out_dir, "uhd_512.ply")
         mesh.write_ply(path, binary=True)
         back = Mesh.load_ply(path)
-    launches = {"warp_fused": counters[0].launches,
-                "mc_fused": counters[1].launches,
-                "interp_rows": counters[2].launches}
-    _require(launches == {"warp_fused": 0, "mc_fused": 1,
-                          "interp_rows": 2 * n_views},
-             f"UHD facade launches {launches}: need kernel C twice per view, "
-             f"MC once, and no fused warp kernel at 2160 rows")
+    _require(launches == {"warp_fused": 1, "mc_fused": 1, "interp_rows": 0},
+             f"UHD facade launches {launches}: need the fused warp kernel "
+             f"once for the 36 views of 2160 rows, MC once, and no kernel C")
+    _require(np.array_equal(imgs, warm), "UHD facade: the SDF images of two "
+             "carves differ")
+    del warm
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     _require(np.array_equal(back.vertices, mesh.vertices)
              and np.array_equal(back.faces, mesh.faces), "PLY read-back")
@@ -1077,36 +1140,97 @@ def phase_facade(device, n_views=36):
     fusions = carver.grid.num_voxels * n_views
     _phase("facade", f"VoxelCarver 512^3 x {n_views} views of 3840x2160: "
            f"carve {carve_s:.4f} s ({fusions / carve_s / 1e9:.3f} "
-           f"Gfusions/s), extract_iso_surface {extract_s:.4f} s ({mesh.num_vertices} "
-           f"vertices, {mesh.num_faces} faces), extract_voxel {voxel_s:.4f} "
-           f"s ({voxels.num_vertices // 24} voxel cubes), launches "
-           f"{launches}, peak mem {peak:.2f} GiB")
+           f"Gfusions/s; the SDF images staged through page-locked "
+           f"buffers), extract_iso_surface {extract_s:.4f} s "
+           f"({mesh.num_vertices} vertices, {mesh.num_faces} faces), "
+           f"extract_voxel {voxel_s:.4f} s ({voxels.num_vertices // 24} "
+           f"voxel cubes), launches {launches}, peak mem {peak:.2f} GiB")
 
-    # the plain two-pass fold and MC on the same 36 SDFs into the empty grid
+    # the two-pass engine with kernel C, the plain fold and MC on the same
+    # 36 SDFs into the empty grid
     grid = carver.grid
-    centers = [grid.axis_centers_t(a, device) for a in range(3)]
     st = VoxelGridState.create(grid, device)
     cam = stack_cameras(cams)
-    ps, pu = warp_fused.warp_fuse_planes_plain(
-        st.sdf, st.update_num, *centers, cam.w2c, cam.principal_point,
-        cam.focal_length, torch.from_numpy(imgs).to(device),
-        opt.update_option, True)
-    torch.cuda.synchronize()
+    imgs_dev = torch.from_numpy(imgs).to(device)
+    a = (st.sdf, st.update_num, *(grid.axis_centers_t(i, device)
+                                  for i in range(3)),
+         cam.w2c, cam.principal_point, cam.focal_length, imgs_dev,
+         opt.update_option, True)
     ks, ku = carver.state.sdf, carver.state.update_num
+    counters[2].launches = 0
+    cs, cu = warp_fold(*a, None, warp_gather.interp_rows)
+    torch.cuda.synchronize()
+    c_launches = counters[2].launches
+    _require(c_launches == 2 * n_views,
+             f"two-pass engine: {c_launches} launches of kernel C, not two "
+             f"per view")
+    _require(torch.equal(ku, cu), "UHD facade: update_num != two-pass engine")
+    _require(torch.equal(_bits(ks), _bits(cs)),
+             "UHD facade: sdf bits != two-pass engine with kernel C")
+    del cs, cu
+    ps, pu = warp_fused.warp_fuse_planes_plain(*a)
+    torch.cuda.synchronize()
     _require(torch.equal(ku, pu), "UHD facade: update_num != plain fold")
     _require(torch.equal(_bits(ks), _bits(ps)), "UHD facade: sdf bits")
     c_err = float((ks - ps).abs().nan_to_num(0).max())
-    del st, ps, pu
-    p = mc_fused.mc_streams_plain(ks, ku, *centers)
+    del ps, pu
+    p = mc_fused.mc_streams_plain(ks, ku, *a[2:5])
     n_vert = sum(int(t.numel()) for t in (p.vx_lin, p.vy_lin, p.vz_lin))
     _require(n_vert == mesh.num_vertices,
              f"UHD facade: plain MC has {n_vert} vertices, the facade's mesh "
              f"{mesh.num_vertices}")
-    _phase("facade", f"512^3 x 36 UHD: kernel C carve == plain two-pass fold "
-           f"(update_num exact, sdf bitwise; fused "
-           f"{float((ku > 0).float().mean()):.3f} of voxels); plain MC "
-           f"{n_vert} vertices as the facade's mesh")
-    return launches, c_err
+    del p
+    _phase("facade", f"512^3 x {n_views} UHD: fused kernel carve == "
+           f"two-pass engine with kernel C ({c_launches} launches) == plain "
+           f"fold (update_num exact, sdf bitwise; fused "
+           f"{float((ku > 0).float().mean()):.3f} "
+           f"of voxels); plain MC {n_vert} vertices as the facade's mesh")
+
+    # kernel A alone at the facade's shape, beside its bound and the
+    # two-pass engine on the same inputs
+    a_ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 5)
+    bound = _warp_bound(st.sdf, st.update_num, imgs_dev, n_views)
+    two_ms = _cuda_ms(lambda: warp_fold(*a, None, warp_gather.interp_rows), 1)
+    plain_ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes_plain(*a), 1)
+    plan = warp_fused.fused_plan(*st.sdf.shape, *imgs_dev.shape[1:],
+                                 warp_fused.smem_optin_bytes(device))
+    _phase("facade", f"512^3 x {n_views} x 3840x2160: fused warp kernel "
+           f"{a_ms:.3f} ms ({fusions / a_ms / 1e6:.1f} Gfusions/s, "
+           f"{bound[0] / a_ms:.3f} of the bound {bound[0]:.3f} ms by "
+           f"{bound[1]}; {plan.inter_rows} rows of the intermediate, grid "
+           f"{plan.grid}), two-pass engine with kernel C {two_ms:.1f} ms, "
+           f"plain fold {plain_ms:.1f} ms")
+    del a, st, imgs_dev
+
+    # the copy of the returned SDF images: the carve with a pageable copy
+    # and with the staged copy, in turns after the timed carve above; then
+    # the host's footprint while the caller keeps every result
+    staged = carver_mod._host_array
+    host_before = _host_memory()
+    kept = [imgs]
+    pageable_s, staged_s = [], [carve_s]
+    for _ in range(2):
+        carver_mod._host_array = lambda t: t.cpu().numpy()
+        try:
+            got, t = _timed_carve(carver, cams, masks)
+        finally:
+            carver_mod._host_array = staged
+        kept.append(got)
+        pageable_s.append(t)
+        got, t = _timed_carve(carver, cams, masks)
+        kept.append(got)
+        staged_s.append(t)
+    host_after = _host_memory()
+    _require(all(np.array_equal(k, imgs) for k in kept),
+             "UHD facade: the SDF images of two carves differ")
+    _phase("facade", f"carve with the SDF images staged through two "
+           f"page-locked buffers {', '.join(f'{t:.4f}' for t in staged_s)} "
+           f"s, through pageable memory "
+           f"{', '.join(f'{t:.4f}' for t in pageable_s)} s; host with "
+           f"{len(kept)} results kept ({imgs.nbytes} bytes each): "
+           f"{host_before} before the last four carves, {host_after} after")
+    del kept, imgs, got
+    return c_err
 
 
 def _ortho_case(device, n_views=8, n=128, size=192, rolled=False):
@@ -1149,10 +1273,11 @@ def _ortho_case(device, n_views=8, n=128, size=192, rolled=False):
 def phase_ortho_exact(device):
     """Orthographic views through the fused warp kernel (bitwise against
     its plain version, timed against the two-pass engine), a 2160-row
-    orthographic view through kernel C, a rolled ortho camera on the exact
-    engine, and the exact engine against the warp engine at 256^3 x 8
-    turntable views (the bar of the JAX package's
-    test_warp_close_to_exact)."""
+    orthographic view through the facade to the fused kernel (bitwise
+    against the two-pass engine with kernel C and the plain fold), a
+    rolled ortho camera on the exact engine, and the exact engine against
+    the warp engine at 256^3 x 8 turntable views (the bar of the JAX
+    package's test_warp_close_to_exact)."""
     import numpy as np
     import torch
 
@@ -1227,7 +1352,7 @@ def phase_ortho_exact(device):
            f"kernel {a_ms:.3f} ms, two-pass engine {two_ms:.3f} ms, plain "
            f"{plain_ms:.3f} ms, bound {a_bound[0]:.4f} ms by {a_bound[1]}")
 
-    # the facade sends views that fit to A, taller ones to C
+    # the facade sends ortho views of any height to A
     counters = (warp_fuse_planes, interp_rows)
     before = [k.launches for k in counters]
     c.carve_batch(cams, masks, engine="warp")
@@ -1243,30 +1368,37 @@ def phase_ortho_exact(device):
     before = [k.launches for k in counters]
     tall_imgs = c.carve_batch(tall_cams, tall_masks, engine="warp")
     torch.cuda.synchronize()
-    _require([k.launches for k in counters] == [before[0], before[1] + 2],
-             "a 2160-row ortho view: need kernel C twice and no fused kernel")
+    _require([k.launches for k in counters] == [before[0] + 1, before[1]],
+             "a 2160-row ortho view: need one fused-kernel launch and no "
+             "kernel C")
     opt = c.option.update_option
     st = VoxelGridState.create(c.grid, device)
     t_synth, t_zero2, t_one2, t_rows = ortho_homography(
         stack_cameras(tall_cams).w2c)
-    ps, pu = warp_fuse_planes_plain(
-        st.sdf, st.update_num,
-        *(c.grid.axis_centers_t(i, device) for i in range(3)), t_synth,
-        t_zero2, t_one2, torch.from_numpy(tall_imgs).to(device), opt,
-        opt.sdf_interp == cfg.SdfInterpolation.BILINEAR, None, t_rows)
+    t_args = (st.sdf, st.update_num,
+              *(c.grid.axis_centers_t(i, device) for i in range(3)), t_synth,
+              t_zero2, t_one2, torch.from_numpy(tall_imgs).to(device), opt,
+              opt.sdf_interp == cfg.SdfInterpolation.BILINEAR, None)
+    ps, pu = warp_fuse_planes_plain(*t_args, t_rows)
+    before = interp_rows.launches
+    ts, tu = warp_fold(*t_args, interp_rows, z_rows=t_rows)
     torch.cuda.synchronize()
-    _require(torch.equal(c.state.update_num, pu)
-             and torch.equal(_bits(c.state.sdf), _bits(ps)),
-             "a 2160-row ortho view through kernel C != plain fold")
+    _require(interp_rows.launches == before + 2,
+             "the two-pass engine: kernel C not launched twice")
+    for what, (s, u) in (("plain fold", (ps, pu)),
+                         ("two-pass engine with kernel C", (ts, tu))):
+        _require(torch.equal(c.state.update_num, u)
+                 and torch.equal(_bits(c.state.sdf), _bits(s)),
+                 f"a 2160-row ortho view through the fused kernel != {what}")
     tall_fused = float((pu > 0).float().mean())
     _require(0.05 < tall_fused < 0.95,
              f"tall ortho: fused {tall_fused} of voxels (half lie behind)")
-    del st, ps, pu
+    del st, ps, pu, ts, tu
     _phase("ortho", f"carve_batch(engine='warp'): 8 ortho views of 192 rows "
            f"launch the fused kernel once and kernel C never (== plain "
-           f"fold); one 2160-row ortho view launches kernel C twice and == "
-           f"plain fold, update_num exact and sdf bitwise (fused "
-           f"{tall_fused:.3f} of voxels, the rest behind the camera)")
+           f"fold); one 2160-row ortho view likewise, == the two-pass engine "
+           f"with kernel C == plain fold, update_num exact and sdf bitwise "
+           f"(fused {tall_fused:.3f} of voxels, the rest behind the camera)")
 
     bb, cams, masks = _ortho_case(device, n_views=1, rolled=True)
     _require(abs(float(cams[0].w2c[1, 1])) < 1e-2, "rolled camera")
@@ -1629,7 +1761,7 @@ def phase_sweep(device, n=1024, n_views=100):
              "sweep chunk: fused warp kernel sdf bits != plain")
     a_err = float((blocked.sdf[zs] - ps).abs().nan_to_num(0).max())
     ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 3)
-    bound = _warp_bound(a[0], a[1], imgs, n_views)
+    bound = _warp_bound(a[0], a[1], imgs, n_views, linear)
     del a, ps, pu
     torch.cuda.empty_cache()
     at_full = (n, n_views) == (1024, 100)
@@ -1740,11 +1872,16 @@ def phase_sweep(device, n=1024, n_views=100):
     return launches, a_err, b_err, scan, (back, ply_sha, peak)
 
 
-def phase_blocked_two_pass(device, n=1024, n_views=2):
-    """The z-chunked two-pass engine: views of 3840 x 2160 into n^3 through
-    carve_views_warp_blocked, kernel C twice per view and chunk; the peak
-    stays under what the unchunked fold would hold; one chunk against the
-    plain fold."""
+def phase_blocked_uhd(device, n=1024, n_views=2):
+    """The z-chunked carve of UHD views: 3840 x 2160 into n^3 through
+    carve_views_warp_blocked, first on the fused warp kernel (once per
+    chunk, no kernel C), then on the two-pass engine (kernel C twice per
+    view and chunk, no fused kernel; its launches, counted from 0, are C's
+    path in this script), which the dispatch picks by shape when the
+    card's shared-memory opt-in is swapped for one that holds no two rows
+    of the fused kernel's intermediate. Each run's peak stays under what
+    the unchunked two-pass fold would hold; the two states are equal bit
+    for bit, and one chunk equals the plain fold."""
     import torch
 
     from vacancy_tpu_torch.camera import stack_cameras
@@ -1762,25 +1899,48 @@ def phase_blocked_two_pass(device, n=1024, n_views=2):
         masks.to(device), use_truncation=True,
         truncation_band=opt.truncation_band)
     cam_args = (cam.w2c, cam.principal_point, cam.focal_length, imgs)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(device)
-    counters = _reset_counters()
-    t0 = time.perf_counter()
-    state = fusion_warp.carve_views_warp_blocked(
-        VoxelGridState.create(grid, device), grid, *cam_args, opt=opt)
-    torch.cuda.synchronize()
-    carve_s = time.perf_counter() - t0
-    launches = _read_counters(counters)
-    peak = torch.cuda.max_memory_allocated(device) / 2**30
     chunks = n // fusion_warp._snap_chunk_nz(n, 128) if n > 128 else 1
-    _require(launches["interp_rows"] == 2 * n_views * chunks
-             and launches["warp_fused"] == 0,
-             f"blocked two-pass launches {launches}: need kernel C twice per "
-             f"view and chunk ({2 * n_views * chunks}) and no fused kernel")
-    # the unchunked fold holds the state in and out plus about ten fields
-    # of nz * max(h, ny) * nx f32 for one view
+    # the unchunked two-pass fold holds the state in and out plus about ten
+    # fields of nz * max(h, ny) * nx f32 for one view
     unchunked = (16 * n**3 + 10 * 4 * n * max(h, n) * n) / 2**30
-    _require(peak < unchunked, f"peak {peak} GiB, unchunked {unchunked} GiB")
+
+    def blocked(held_bytes=0):
+        """(state, seconds, launches, peak GiB beside ``held_bytes``)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        counters = _reset_counters()
+        t0 = time.perf_counter()
+        st = fusion_warp.carve_views_warp_blocked(
+            VoxelGridState.create(grid, device), grid, *cam_args, opt=opt)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_counters(counters)
+        peak = (torch.cuda.max_memory_allocated(device) - held_bytes) / 2**30
+        _require(peak < unchunked,
+                 f"peak {peak} GiB, unchunked {unchunked} GiB")
+        return st, seconds, launches, peak
+
+    state, carve_s, launches, peak = blocked()
+    _require(launches["warp_fused"] == chunks
+             and launches["interp_rows"] == 0,
+             f"blocked UHD launches {launches}: need the fused warp kernel "
+             f"once per chunk ({chunks}) and no kernel C")
+    optin = warp_fused.smem_optin_bytes
+    warp_fused.smem_optin_bytes = lambda dev: (
+        warp_fused.STATIC_SMEM_BYTES + 2 * warp_fused.TILE_X * 4 - 1)
+    try:
+        two, two_s, two_launches, two_peak = blocked(
+            _nbytes(state.sdf, state.update_num))
+    finally:
+        warp_fused.smem_optin_bytes = optin
+    _require(two_launches["interp_rows"] == 2 * n_views * chunks
+             and two_launches["warp_fused"] == 0,
+             f"blocked two-pass launches {two_launches}: need kernel C twice "
+             f"per view and chunk ({2 * n_views * chunks}) and no fused "
+             f"kernel")
+    _require(torch.equal(state.update_num, two.update_num)
+             and torch.equal(_bits(state.sdf), _bits(two.sdf)),
+             "blocked UHD: fused warp kernel != two-pass engine")
 
     zs = slice(n // 2, n // 2 + min(128, n // 2))
     centers = [grid.axis_centers_t(a, device) for a in range(3)]
@@ -1790,20 +1950,24 @@ def phase_blocked_two_pass(device, n=1024, n_views=2):
     torch.cuda.synchronize()
     _require(torch.equal(state.update_num[zs], pu)
              and torch.equal(_bits(state.sdf[zs]), _bits(ps)),
-             "blocked two-pass chunk != plain fold")
+             "blocked UHD chunk != plain fold")
     fused = float((pu > 0).float().mean())
-    _require(fused > 0.05, "blocked two-pass: nothing fused")
-    c_err = float((state.sdf[zs] - ps).abs().nan_to_num(0).max())
+    _require(fused > 0.05, "blocked UHD: nothing fused")
+    c_err = float((two.sdf[zs] - ps).abs().nan_to_num(0).max())
+    fusions = grid.num_voxels * n_views
     _phase("blocked", f"{n}^3 x {n_views} views of {w}x{h} through "
-           f"carve_views_warp_blocked: {carve_s:.4f} s (first call; "
-           f"{grid.num_voxels * n_views / carve_s / 1e9:.3f} Gfusions/s), "
-           f"launches {launches}, peak mem {peak:.2f} GiB (unchunked "
-           f"estimate {unchunked:.1f} GiB); planes [{zs.start}, {zs.stop}) "
-           f"== plain fold, update_num exact and sdf bitwise (fused "
+           f"carve_views_warp_blocked (first calls; unchunked two-pass "
+           f"estimate {unchunked:.1f} GiB): fused warp kernel "
+           f"{carve_s:.4f} s ({fusions / carve_s / 1e9:.3f} Gfusions/s), "
+           f"launches {launches}, peak mem {peak:.2f} GiB; two-pass engine "
+           f"{two_s:.4f} s ({fusions / two_s / 1e9:.3f} Gfusions/s), "
+           f"launches {two_launches}, peak mem {two_peak:.2f} GiB beside the "
+           f"first state; the two states equal (update_num exact, sdf "
+           f"bitwise); planes [{zs.start}, {zs.stop}) == plain fold (fused "
            f"{fused:.3f} of them)")
-    del state, ps, pu, imgs
+    del state, two, ps, pu, imgs
     torch.cuda.empty_cache()
-    return launches, c_err
+    return two_launches["interp_rows"], c_err
 
 
 BENCH_KEYS = (
@@ -2293,7 +2457,7 @@ def phase_sharded_sweep(device, ref_mesh, ref_sha, ref_peak, n=1024,
             a_err = max(a_err,
                         float((st.sdf[zs] - ps).abs().nan_to_num(0).max()))
             ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 3)
-            bound = _warp_bound(a[0], a[1], imgs, n_views)
+            bound = _warp_bound(a[0], a[1], imgs, n_views, linear)
             line += (f"; fused warp kernel == plain on planes [{zs.start}, "
                      f"{zs.stop}) of block {b} ({list(a[0].shape)} x "
                      f"{n_views} views: "
@@ -2368,7 +2532,7 @@ def phase_mesh_222(device, ref_mesh, n=512, n_views=36, n_sphere=256):
              "(2, 2, 2): fused warp kernel != plain on one block")
     a_err = float((ks - ps).abs().nan_to_num(0).max())
     ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 5)
-    bound = _warp_bound(a[0], a[1], imgs, n_views)
+    bound = _warp_bound(a[0], a[1], imgs, n_views, linear)
     _phase("mesh-222", f"fused warp kernel == plain on block (1, 0, 1) "
            f"{list(a[0].shape)} x {n_views} views (update_num exact, sdf "
            f"bitwise): "
@@ -2650,13 +2814,13 @@ def main() -> int:
     _, a_main_err, b_main_err, turntable_mesh = phase_main_path(device)
     c_err, c_times = phase_interp(device)
     phase_two_pass(device)
-    _, c_main_err = phase_facade(device)
+    c_main_err = phase_facade(device)
     a_ortho_err, _, _ = phase_ortho_exact(device)
     d_err, d_ms, d_plain, d_lib, d_bound = phase_probe(device)
     scan_small_err = phase_mc_passes(device)
     sweep_launches, a_sweep_err, b_sweep_err, scan, sweep_ref = phase_sweep(
         device)
-    blocked_launches, c_blocked_err = phase_blocked_two_pass(device)
+    c_blocked_launches, c_blocked_err = phase_blocked_uhd(device)
     bench_launches = phase_bench(device)
     phase_xla_checkpoint(device)
     b_window_err = phase_mc_windows(device)
@@ -2693,7 +2857,7 @@ def main() -> int:
                   b_sharded_err, b_222_err), b_ms, b_plain, b_bound),
         entry("interp_rows", "interp_rows.cu",
               "vacancy_tpu/ops/warp_gather.py:29",
-              blocked_launches["interp_rows"],
+              c_blocked_launches,
               max(c_err, c_main_err, c_blocked_err), c_ms, c_plain, c_bound,
               c_lib),
         entry("probe", "probe.cu", "bench.py:53", bench_launches["probe"],

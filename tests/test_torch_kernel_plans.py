@@ -19,6 +19,8 @@ of the 8880 at 6 x 37 x 40) may take the neighbouring pixel instead, where
 a sample position lies within an ulp of a half pixel.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,20 +40,28 @@ SM_REGISTERS = 65_536
 WARPS = warp_fused.THREADS // 32
 
 
+TALL_ROWS = [1816, 1817, 2160, 4320, 8640]
+
+
 @pytest.mark.parametrize("optin", [H100_OPTIN, 101_376, 49_152])
-def test_max_fused_rows_is_unchanged(optin):
-    """``carve_views_warp`` still hands kernel A what ``h * 32`` f32 of
-    shared memory would hold: 1816 rows on an H100."""
-    assert warp_fused.max_fused_rows(optin) == optin // (32 * 4)
-    assert warp_fused.max_fused_rows(H100_OPTIN) == 1816
-    assert warp_fused.fused_fits(1816, H100_OPTIN)
-    assert not warp_fused.fused_fits(1817, H100_OPTIN)
+def test_fused_fits_views_of_any_height(optin):
+    """``carve_views_warp`` hands kernel A views of any height: a CTA holds
+    at most ``INTER_ROWS_CAP`` rows of the intermediate (fewer where the
+    card's opt-in is smaller) and walks a taller band in chunks."""
+    rows = min(warp_fused.INTER_ROWS_CAP,
+               (optin - warp_fused.STATIC_SMEM_BYTES) // (32 * 4))
+    for h in TALL_ROWS:
+        assert warp_fused.fused_refusal(512, 512, 512, h, 3840, optin) is None
+        plan = warp_fused.fused_plan(512, 512, 512, h, 3840, optin)
+        assert plan.inter_rows == rows and plan.smem_bytes <= optin
+    assert rows == (warp_fused.INTER_ROWS_CAP if optin >= 101_376 else 380)
 
 
 PLAN_SHAPES = [
     (1, 1, 1, 1), (6, 37, 40, 48), (5, 130, 33, 48), (72, 80, 96, 240),
     (128, 1024, 1024, 240), (512, 512, 512, 240), (4, 64, 32, 385),
-    (3, 65, 31, 1816), (65535, 2, 2, 8),
+    (3, 65, 31, 1816), (65535, 2, 2, 8), (3, 65, 31, 2160),
+    (512, 512, 512, 2160), (9, 70, 40, 8640),
 ]
 
 
@@ -59,7 +69,7 @@ PLAN_SHAPES = [
                          ids=["x".join(map(str, s)) for s in PLAN_SHAPES])
 def test_fused_plan_covers_every_voxel_once_and_fits(shape):
     nz, ny, nx, h = shape
-    plan = warp_fused.fused_plan(nz, ny, nx, h, H100_OPTIN)
+    plan = warp_fused.fused_plan(nz, ny, nx, h, 3840, H100_OPTIN)
     # shared memory: the card's limit, and two rows for a linear tap pair
     assert plan.smem_bytes <= H100_OPTIN
     assert plan.smem_bytes == (plan.inter_rows * warp_fused.TILE_X * 4
@@ -88,18 +98,38 @@ def test_fused_plan_covers_every_voxel_once_and_fits(shape):
     assert (seen == 1).all()
 
 
+# (nz, ny, nx, h, w, optin, what the refusal names): the kernel's true
+# limits -- a grid's 65535 planes and y-tiles, two rows of shared memory
+# for a linear tap pair, 32-bit offsets within an image, an empty state
+REFUSED = [
+    (65536, 8, 8, 48, 40, H100_OPTIN, "65535"),
+    (8, 65535 * 64 + 1, 8, 48, 40, H100_OPTIN, "65535"),
+    (8, 8, 8, 65536, 65536, H100_OPTIN, "2\\*\\*32"),
+    (8, 8, 8, 2**31, 2, H100_OPTIN, "2\\*\\*32"),
+    (8, 8, 8, 4, 40, warp_fused.STATIC_SMEM_BYTES + 2 * 32 * 4 - 1,
+     "no two rows"),
+    (8, 8, 8, 2160, 3840, 48, "no two rows"),
+    (8, 0, 8, 48, 40, H100_OPTIN, "empty"),
+    (8, 8, 8, 48, 0, H100_OPTIN, "empty"),
+]
+
+
 def test_fused_plan_refuses_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError, match="at most 1816 rows"):
-        warp_fused.fused_plan(8, 8, 8, 1817, H100_OPTIN)
-    with pytest.raises(ValueError, match="65535"):
-        warp_fused.fused_plan(65536, 8, 8, 48, H100_OPTIN)
-    with pytest.raises(ValueError, match="empty"):
-        warp_fused.fused_plan(8, 0, 8, 48, H100_OPTIN)
-    # a card too small for two rows beside the kernel's fixed arrays
-    with pytest.raises(ValueError, match="no two rows"):
-        warp_fused.fused_plan(8, 8, 8, 4,
-                              warp_fused.STATIC_SMEM_BYTES + 4 * 32 * 4 - 300)
-    small = warp_fused.fused_plan(8, 8, 8, 310, 40_000)
+    for nz, ny, nx, h, w, optin, what in REFUSED:
+        with pytest.raises(ValueError, match=what):
+            warp_fused.fused_plan(nz, ny, nx, h, w, optin)
+        assert re.search(what, warp_fused.fused_refusal(nz, ny, nx, h, w,
+                                                        optin))
+    # one pixel under 2**32, 65535 planes, two rows: each taken
+    assert warp_fused.fused_refusal(8, 8, 8, 65535, 65537, H100_OPTIN) is None
+    assert warp_fused.fused_refusal(65535, 65535 * 64, 8, 48, 40,
+                                    H100_OPTIN) is None
+    two = warp_fused.fused_plan(8, 8, 8, 4, 40,
+                                warp_fused.STATIC_SMEM_BYTES + 2 * 32 * 4)
+    assert two.inter_rows == 2
+    assert warp_fused.fused_plan(8, 8, 8, 1, 40, warp_fused.STATIC_SMEM_BYTES
+                                 + 32 * 4).inter_rows == 1
+    small = warp_fused.fused_plan(8, 8, 8, 310, 40, 40_000)
     assert small.inter_rows == (40_000 - warp_fused.STATIC_SMEM_BYTES) // 128
     assert small.smem_bytes <= 40_000
 
@@ -123,7 +153,8 @@ def _band_chunks(blo, pmax, y1, inter_rows, linear):
 @pytest.mark.parametrize("band", [(0, 0, 0), (5, 5, 239), (0, 239, 239),
                                   (3, 1799, 1799), (100, 867, 1815),
                                   (0, 383, 1000), (0, 382, 1000),
-                                  (17, 17 + 2 * 383, 1815)])
+                                  (17, 17 + 2 * 383, 1815), (0, 2159, 2159),
+                                  (900, 1170, 2159), (0, 8639, 8639)])
 def test_band_chunks_hold_every_tap_once(band, linear):
     """Every first tap row of the band falls into exactly one chunk, whose
     computed rows hold it and, for a linear pair, the row after it."""
@@ -215,7 +246,7 @@ def test_warp_fuse_planes_matches_jax_interpret_across_tiles(shape, rule,
     sdf0, un0 = _initial_state(shape)
     tg, jg = tgrid.GridSpec(*spec), jgrid.GridSpec(*spec)
     assert tg.shape_zyx == shape
-    plan = warp_fused.fused_plan(*shape, 48, H100_OPTIN)
+    plan = warp_fused.fused_plan(*shape, 48, 40, H100_OPTIN)
     assert plan.grid == (2, shape[0], -(-shape[1] // warp_fused.TILE_Y))
     before = warp_fused.warp_fuse_planes.launches
     ts, tu = warp_fused.warp_fuse_planes(

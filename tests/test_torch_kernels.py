@@ -318,7 +318,7 @@ def test_warp_kernel_tiling_edges_equal_plain_on_gpu(cuda_device, case,
         args[6][:, 1] *= scale  # the principal point's and the focal
         args[7][:, 1] *= scale  # length's v: the same view, taller
         plan = warp_fused.fused_plan(
-            *shape, rows, warp_fused.smem_optin_bytes(cuda_device))
+            *shape, rows, 360, warp_fused.smem_optin_bytes(cuda_device))
         assert plan.inter_rows < rows  # the band goes in chunks
     opt = cfg.VoxelUpdateOption(
         voxel_update=cfg.VoxelUpdate.WEIGHTED_AVERAGE, use_truncation=True,
@@ -384,14 +384,15 @@ def test_profile_sees_both_kernels_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_profile_facade_sees_kernel_c_on_gpu(cuda_device):
-    """Views of 2000 rows take the two-pass engine: the facade's profile
-    shows kernel C and no fused warp kernel."""
-    before = interp_rows.launches
+def test_profile_facade_sees_the_fused_kernel_on_gpu(cuda_device):
+    """Views of 2000 rows take the fused warp kernel: the facade's profile
+    shows it and no kernel C."""
+    before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
     out = profile_turntable.profile_facade(32, 2, 96, 2000, cuda_device)
     names = " ".join(s["name"] for s in out["spans"])
-    assert "interp_rows" in names and "warp_fused" not in names
-    assert interp_rows.launches == before + 2 * (2 * 2)  # warm-up + profiled
+    assert "warp_fused" in names and "interp_rows" not in names
+    assert (warp_fused.warp_fuse_planes.launches,  # warm-up + profiled
+            interp_rows.launches) == (before[0] + 2, before[1])
     assert 0 < out["device_s"] < out["wall_s"]
 
 
@@ -551,30 +552,102 @@ def _tall_case(device, h=2160, w=480, n_views=2):
                                                            imgs)]
 
 
+# an opt-in whose blocks hold no two rows of kernel A's intermediate: the
+# engine choice then sends any view to the two-pass engine (kernel C)
+NO_TWO_ROWS = warp_fused.STATIC_SMEM_BYTES + 2 * warp_fused.TILE_X * 4 - 1
+
+
 @pytest.mark.cuda
-def test_tall_views_take_the_two_pass_engine_on_gpu(cuda_device):
-    """2160 rows exceed the fused kernel's shared memory on an H100:
-    carve_views_warp picks the two-pass engine (kernel C) by shape, and
-    the fused kernel's wrapper refuses such views with the row limit."""
+def test_tall_views_take_the_fused_kernel_on_gpu(cuda_device):
+    """2160 rows: carve_views_warp launches the fused kernel once, and no
+    kernel C; its state equals the plain fold and the two-pass engine with
+    kernel C bit for bit. Images of 2**32 pixels or more are refused before
+    any launch."""
     grid, (w2c, pp, fl, imgs) = _tall_case(cuda_device)
     optin = warp_fused.smem_optin_bytes(cuda_device)
-    assert not warp_fused.fused_fits(2160, optin)
+    shape = grid.shape_zyx
+    assert warp_fused.fused_refusal(*shape, 2160, 480, optin) is None
+    assert warp_fused.fused_plan(*shape, 2160, 480, optin).inter_rows == min(
+        warp_fused.INTER_ROWS_CAP,
+        (optin - warp_fused.STATIC_SMEM_BYTES) // (warp_fused.TILE_X * 4))
     st = VoxelGridState.create(grid, cuda_device)
     before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
     out = fusion_warp.carve_views_warp(st, grid, w2c, pp, fl, imgs)
-    assert warp_fused.warp_fuse_planes.launches == before[0]
-    assert interp_rows.launches == before[1] + 2 * 2
+    assert (warp_fused.warp_fuse_planes.launches,
+            interp_rows.launches) == (before[0] + 1, before[1])
     centers = [grid.axis_centers_t(a, cuda_device) for a in range(3)]
-    ps, pu = warp_fuse_planes_plain(st.sdf, st.update_num, *centers, w2c, pp,
-                                    fl, imgs, cfg.VoxelUpdateOption(), True)
+    args = (st.sdf, st.update_num, *centers, w2c, pp, fl, imgs,
+            cfg.VoxelUpdateOption(), True)
+    ps, pu = warp_fuse_planes_plain(*args)
+    cs, cu = fusion_warp.warp_fold(*args, None, interp_rows)
     torch.cuda.synchronize()
-    assert torch.equal(out.update_num, pu) and bool((pu > 0).any())
-    assert torch.equal(out.sdf.view(torch.int32), ps.view(torch.int32))
-    limit = warp_fused.max_fused_rows(optin)
-    with pytest.raises(ValueError, match=f"at most {limit} rows"):
-        warp_fused.warp_fuse_planes(st.sdf, st.update_num, *centers, w2c, pp,
-                                    fl, imgs, cfg.VoxelUpdateOption(), True)
-    assert warp_fused.warp_fuse_planes.launches == before[0]
+    assert interp_rows.launches == before[1] + 2 * 2
+    for s, u in ((ps, pu), (cs, cu)):
+        assert torch.equal(out.update_num, u)
+        assert torch.equal(out.sdf.view(torch.int32), s.view(torch.int32))
+    assert bool((pu > 0).any())
+    with pytest.raises(ValueError, match="2\\*\\*32"):
+        warp_fused.fused_plan(*shape, 65536, 65536, optin)
+    assert not fusion_warp._fused_kernel_takes(cuda_device, shape, 65536,
+                                               65536)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage_bytes", [4096, 4 * 7007, 1 << 25],
+                         ids=["many-slices", "one-slice-left", "one-slice"])
+def test_host_array_stages_through_reused_buffers_on_gpu(
+        cuda_device, monkeypatch, stage_bytes):
+    """``carver._host_array`` of a CUDA tensor: the same values as
+    ``.cpu()``, in a pageable array of its own for each call, whatever
+    the staging buffers' size against the tensor's."""
+    from vacancy_tpu_torch import carver as carver_mod
+
+    monkeypatch.setattr(carver_mod, "STAGE_BYTES", stage_bytes)
+    t = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(3, 1001, 7)).astype(np.float32)).to(cuda_device)
+    a = carver_mod._host_array(t)
+    b = carver_mod._host_array(t * 2)
+    assert a.shape == (3, 1001, 7) and a.dtype == np.float32
+    assert np.array_equal(a, t.cpu().numpy())
+    assert np.array_equal(b, (t * 2).cpu().numpy())
+    assert not torch.from_numpy(a).is_pinned()
+    assert not np.shares_memory(a, b)
+
+
+def test_host_array_of_a_cpu_tensor_is_its_numpy_view():
+    from vacancy_tpu_torch import carver as carver_mod
+
+    t = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    a = carver_mod._host_array(t)
+    assert np.array_equal(a, t.numpy()) and np.shares_memory(a, t.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(2,), (3,)], ids=["2-blocks",
+                                                          "3-blocks"])
+def test_sharded_carve_takes_tall_views_to_the_fused_kernel_on_gpu(
+        cuda_device, mesh_shape):
+    """``carve_views_warp_sharded`` over z blocks on the one card: views
+    of 2160 rows go to the fused kernel once per block and never to
+    kernel C, and the blocks gather to the dense carve bit for bit."""
+    from vacancy_tpu_torch import parallel as tpar
+
+    grid, (w2c, pp, fl, imgs) = _tall_case(cuda_device)
+    dense = fusion_warp.carve_views_warp(
+        VoxelGridState.create(grid, cuda_device), grid, w2c, pp, fl, imgs)
+    mesh = tpar.make_device_mesh(shape=mesh_shape,
+                                 devices=[cuda_device] * mesh_shape[0])
+    st = VoxelGridState.create(grid, sharding=tpar.grid_sharding(mesh))
+    before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    out = tpar.carve_views_warp_sharded(st, grid, w2c, pp, fl, imgs,
+                                        mesh=mesh)
+    assert (warp_fused.warp_fuse_planes.launches,
+            interp_rows.launches) == (before[0] + mesh_shape[0], before[1])
+    got = out.gather()
+    torch.cuda.synchronize()
+    assert torch.equal(got.update_num, dense.update_num)
+    assert torch.equal(got.sdf.view(torch.int32), dense.sdf.view(torch.int32))
+    assert bool((dense.update_num > 0).any())
 
 
 @pytest.mark.cuda
@@ -624,44 +697,104 @@ def test_warp_kernel_ortho_rows_equal_plain_on_gpu(cuda_device, rule, linear):
 
 
 @pytest.mark.cuda
-def test_ortho_views_that_fit_take_the_fused_kernel_on_gpu(cuda_device):
-    """``carve_views_warp_ortho`` launches kernel A for views that fit it
-    and kernel C for taller ones, and both equal the plain fold."""
-    for size, fused in ((48, True), (2000, False)):
-        nz, ny, nx = 8, 9, 10
-        grid = GridSpec((0.0,) * 3, (nx + 0.4, ny + 0.4, nz + 0.4), 1.0)
-        rng = np.random.default_rng(1)
-        w2c = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
-        w2c[:, :3, 3] = [32 - nx / 2, size / 2 - ny / 2, 5.0]
-        w2c[1, 2, 3] = -4.0  # half of the grid lies behind view 1
-        w2c = torch.from_numpy(w2c).to(cuda_device)
-        imgs = torch.from_numpy(rng.normal(size=(2, size, 64)).astype(
-            np.float32)).to(cuda_device)
-        st = VoxelGridState.create(grid, cuda_device)
-        before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
-        out = fusion_warp.carve_views_warp_ortho(st, grid, w2c, imgs)
-        after = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
-        assert after == ((before[0] + 1, before[1]) if fused
-                         else (before[0], before[1] + 4))
-        synth, zero2, one2, z_rows = fusion_warp.ortho_homography(w2c)
-        plain_args = (
-            st.sdf, st.update_num,
-            *(grid.axis_centers_t(a, cuda_device) for a in range(3)), synth,
-            zero2, one2, imgs, cfg.VoxelUpdateOption(), True, None)
-        ps, pu = warp_fuse_planes_plain(*plain_args, z_rows)
-        _, qu = warp_fuse_planes_plain(*plain_args)  # no behind mask
-        torch.cuda.synchronize()
-        assert torch.equal(out.update_num, pu) and bool((pu > 0).any())
-        assert not torch.equal(qu, pu)
-        assert torch.equal(out.sdf.view(torch.int32), ps.view(torch.int32))
+@pytest.mark.parametrize("size,optin", [(48, None), (2000, None),
+                                        (48, NO_TWO_ROWS)],
+                         ids=["48-rows", "2000-rows", "no-two-rows"])
+def test_ortho_views_that_fit_take_the_fused_kernel_on_gpu(
+        cuda_device, monkeypatch, size, optin):
+    """``carve_views_warp_ortho`` launches kernel A for views of any height
+    its plan takes, and kernel C where the card's shared memory could not
+    hold its plan; both equal the plain fold."""
+    fused = optin is None
+    if not fused:
+        monkeypatch.setattr(warp_fused, "smem_optin_bytes",
+                            lambda dev: optin)
+    nz, ny, nx = 8, 9, 10
+    grid = GridSpec((0.0,) * 3, (nx + 0.4, ny + 0.4, nz + 0.4), 1.0)
+    rng = np.random.default_rng(1)
+    w2c = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    w2c[:, :3, 3] = [32 - nx / 2, size / 2 - ny / 2, 5.0]
+    w2c[1, 2, 3] = -4.0  # half of the grid lies behind view 1
+    w2c = torch.from_numpy(w2c).to(cuda_device)
+    imgs = torch.from_numpy(rng.normal(size=(2, size, 64)).astype(
+        np.float32)).to(cuda_device)
+    st = VoxelGridState.create(grid, cuda_device)
+    before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    out = fusion_warp.carve_views_warp_ortho(st, grid, w2c, imgs)
+    after = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    assert after == ((before[0] + 1, before[1]) if fused
+                     else (before[0], before[1] + 4))
+    synth, zero2, one2, z_rows = fusion_warp.ortho_homography(w2c)
+    plain_args = (
+        st.sdf, st.update_num,
+        *(grid.axis_centers_t(a, cuda_device) for a in range(3)), synth,
+        zero2, one2, imgs, cfg.VoxelUpdateOption(), True, None)
+    ps, pu = warp_fuse_planes_plain(*plain_args, z_rows)
+    _, qu = warp_fuse_planes_plain(*plain_args)  # no behind mask
+    torch.cuda.synchronize()
+    assert torch.equal(out.update_num, pu) and bool((pu > 0).any())
+    assert not torch.equal(qu, pu)
+    assert torch.equal(out.sdf.view(torch.int32), ps.view(torch.int32))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [240, 2000], ids=["kernel-a", "kernel-c"])
-def test_blocked_carve_equals_unblocked_on_gpu(cuda_device, h):
+def test_ortho_facade_takes_a_2160_row_view_to_the_fused_kernel_on_gpu(
+        cuda_device):
+    """``VoxelCarver.carve_batch(engine="warp")`` of one orthographic view
+    of 1200 x 2160 pixels over a grid whose 60 rows of 36-unit voxels span
+    the image: kernel A once, kernel C never; the state equals the plain
+    fold and the two-pass engine with kernel C bit for bit."""
+    from vacancy_tpu_torch import VoxelCarver
+    from vacancy_tpu_torch.camera import OrthoCamera
+
+    h, w, res = 2160, 1200, 36.0
+    opt = cfg.VoxelCarverOption(bb_min=(0.0,) * 3,
+                                bb_max=(32.4 * res, 60.4 * res, 24.4 * res),
+                                resolution=res)
+    carver = VoxelCarver(opt, cuda_device)
+    assert carver.init() and carver.grid.shape_zyx == (24, 60, 32)
+    w2c = np.eye(4)
+    w2c[:3, 3] = [24.0, 0.0, 100.0]
+    cam = OrthoCamera.create(w, h, np.linalg.inv(w2c), device=cuda_device)
+    vv, uu = np.mgrid[0:h, 0:w]
+    masks = ((((uu - 600) / 500.0) ** 2 + ((vv - 1080) / 1000.0) ** 2
+              < 1) * 255).astype(np.uint8)[None]
+    before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
+    imgs = carver.carve_batch([cam], masks, engine="warp")
+    assert (warp_fused.warp_fuse_planes.launches,
+            interp_rows.launches) == (before[0] + 1, before[1])
+    synth, zero2, one2, z_rows = fusion_warp.ortho_homography(cam.w2c[None])
+    st = VoxelGridState.create(carver.grid, cuda_device)
+    args = (st.sdf, st.update_num,
+            *(carver.grid.axis_centers_t(a, cuda_device) for a in range(3)),
+            synth, zero2, one2, torch.from_numpy(imgs).to(cuda_device),
+            opt.update_option,
+            opt.update_option.sdf_interp == cfg.SdfInterpolation.BILINEAR,
+            None)
+    ps, pu = warp_fuse_planes_plain(*args, z_rows)
+    cs, cu = fusion_warp.warp_fold(*args, interp_rows, z_rows=z_rows)
+    torch.cuda.synchronize()
+    assert interp_rows.launches == before[1] + 2
+    for s, u in ((ps, pu), (cs, cu)):
+        assert torch.equal(carver.state.update_num, u)
+        assert torch.equal(carver.state.sdf.view(torch.int32),
+                           s.view(torch.int32))
+    assert 0.05 < float((pu > 0).float().mean()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,fused", [(240, True), (2000, False),
+                                     (2160, True)],
+                         ids=["kernel-a", "kernel-c", "kernel-a-2160-rows"])
+def test_blocked_carve_equals_unblocked_on_gpu(cuda_device, monkeypatch, h,
+                                               fused):
     """The z-chunked carve updates the state in place and equals one
-    ``carve_views_warp`` bit for bit, through kernel A (in place) and
-    through the two-pass engine with kernel C."""
+    ``carve_views_warp`` bit for bit, through kernel A (in place, views of
+    any height) and through the two-pass engine with kernel C (on a card
+    whose shared memory could not hold A's plan)."""
+    if not fused:
+        monkeypatch.setattr(warp_fused, "smem_optin_bytes",
+                            lambda dev: NO_TWO_ROWS)
     grid, (w2c, pp, fl, imgs) = _tall_case(cuda_device, h=h, w=96)
     want = fusion_warp.carve_views_warp(
         VoxelGridState.create(grid, cuda_device), grid, w2c, pp, fl, imgs)
@@ -673,7 +806,7 @@ def test_blocked_carve_equals_unblocked_on_gpu(cuda_device, h):
     after = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
     chunks = grid.shape_zyx[0] // 3
     assert grid.shape_zyx[0] == 18
-    assert after == ((before[0] + chunks, before[1]) if h == 240
+    assert after == ((before[0] + chunks, before[1]) if fused
                      else (before[0], before[1] + chunks * 2 * 2))
     assert got.sdf is st.sdf and got.update_num is st.update_num
     assert torch.equal(got.update_num, want.update_num)

@@ -1,6 +1,6 @@
-"""The port's row sampler (kernel C's plain version), the fused kernel's
-row limit and the two-pass engine vs the JAX package on identical numpy
-inputs.
+"""The port's row sampler (kernel C's plain version), the rule by which
+the warp engines are chosen, and the two-pass engine and views of 2200
+rows vs the JAX package on identical numpy inputs.
 
 Bars: nearest-neighbour samples bitwise; linear samples within one ulp
 of the larger of their two taps, since XLA on the CPU contracts the
@@ -22,6 +22,7 @@ from vacancy_tpu.ops.warp_gather import interp_rows as j_interp_rows
 from vacancy_tpu_torch import config as tcfg
 from vacancy_tpu_torch import grid as tgrid
 from vacancy_tpu_torch.ops import fusion_warp, warp_fused, warp_gather
+from vacancy_tpu_torch.ops.sdf2d import make_signed_distance_field
 from vacancy_tpu_torch.ops.warp_gather import interp_rows, interp_rows_plain
 
 from test_torch_warp import _assert_close_states, _initial_state, _scene
@@ -82,13 +83,74 @@ def test_interp_rows_refuses_taps_outside_the_row(lo, hi):
                     lo=lo, hi=hi)
 
 
-@pytest.mark.parametrize("h,fits", [(1816, True), (1817, False),
-                                    (2160, False)])
-def test_fused_fits_at_the_h100_limit(h, fits):
+@pytest.mark.parametrize("h", [1816, 1817, 2160, 4320, 8640])
+def test_fused_fits_at_the_h100_limit(h):
     """232,448 bytes is an H100 block's shared-memory opt-in limit: the
-    fused kernel's intermediate of h x 32 f32 fits up to 1816 rows."""
-    assert warp_fused.max_fused_rows(232_448) == 1816
-    assert warp_fused.fused_fits(h, 232_448) is fits
+    fused kernel holds 384 rows of its intermediate at a time and takes
+    views of any height, 4K UHD (2160 rows) and 8K (4320) among them."""
+    assert warp_fused.fused_refusal(512, 512, 512, h, 3840, 232_448) is None
+    assert warp_fused.fused_plan(512, 512, 512, h, 3840,
+                                 232_448).inter_rows == 384
+
+
+@pytest.mark.parametrize("optin,takes", [(232_448, True), (600, False)],
+                         ids=["h100", "no-two-rows"])
+def test_engine_choice_follows_the_fused_plan(monkeypatch, optin, takes):
+    """On a CUDA device the engine is chosen from the card's shared-memory
+    opt-in alone, before any launch: an H100 takes 2160-row views to
+    kernel A; a card whose blocks hold no two rows of its intermediate
+    sends them to the two-pass engine. No card is needed to decide."""
+    monkeypatch.setattr(warp_fused, "smem_optin_bytes", lambda dev: optin)
+    dev = torch.device("cuda", 0)
+    assert fusion_warp._fused_kernel_takes(dev, (512, 512, 512), 2160,
+                                           3840) is takes
+    assert fusion_warp._fused_kernel_takes(dev, (512, 512, 512), 65536,
+                                           65536) is False
+    assert fusion_warp._fused_kernel_takes(torch.device("cpu"),
+                                           (512, 512, 512), 2160, 3840)
+
+
+def test_blocked_carve_chooses_the_engine_for_one_chunk(monkeypatch):
+    """The z-chunked carve asks for the engine with the shape of one
+    z-chunk (18 planes at chunk_nz 4 snap to chunks of 3), once."""
+    asked = []
+
+    def takes(device, shape_zyx, h, w):
+        asked.append((device.type, tuple(shape_zyx), h, w))
+        return True
+
+    monkeypatch.setattr(fusion_warp, "_fused_kernel_takes", takes)
+    spec, w2c, pp, fl, imgs = _scene(shape=(18, 9, 10), n_views=2, h=52,
+                                     w=44)
+    grid = tgrid.GridSpec(*spec)
+    assert grid.shape_zyx == (18, 9, 10)
+    fusion_warp.carve_views_warp_blocked(
+        tgrid.VoxelGridState.create(grid, "cpu"), grid,
+        *(torch.from_numpy(a) for a in (w2c, pp, fl, imgs)), chunk_nz=4)
+    assert asked == [("cpu", (3, 9, 10), 52, 44)]
+
+
+def test_sharded_carve_chooses_the_engine_per_block(monkeypatch):
+    """The sharded carve asks for the engine with each block's shape:
+    two z blocks of a 16 x 9 x 10 grid, 8 planes each."""
+    from vacancy_tpu_torch import parallel as tpar
+
+    asked = []
+
+    def takes(device, shape_zyx, h, w):
+        asked.append((tuple(shape_zyx), h, w))
+        return True
+
+    monkeypatch.setattr(fusion_warp, "_fused_kernel_takes", takes)
+    spec, w2c, pp, fl, imgs = _scene(shape=(16, 9, 10), n_views=2, h=52,
+                                     w=44)
+    grid = tgrid.GridSpec(*spec)
+    mesh = tpar.make_device_mesh(shape=(2,), devices=["cpu"] * 2)
+    tpar.carve_views_warp_sharded(
+        tgrid.VoxelGridState.create(grid, sharding=tpar.grid_sharding(mesh)),
+        grid, *(torch.from_numpy(a) for a in (w2c, pp, fl, imgs)),
+        mesh=mesh)
+    assert asked == [((8, 9, 10), 52, 44)] * 2
 
 
 @pytest.mark.parametrize("linear", [True, False], ids=["bilinear", "nn"])
@@ -126,3 +188,77 @@ def test_two_pass_fold_matches_jax(rule, linear):
     )
     _assert_close_states((ts.numpy(), tu.numpy()),
                          (np.asarray(jst.sdf), np.asarray(jst.update_num)))
+
+
+def _projected_v(spec, w2c):
+    """y / z in each camera of every voxel centre, [V, voxels]."""
+    grid = tgrid.GridSpec(*spec)
+    zz, yy, xx = np.meshgrid(*(grid.axis_centers(a) for a in (2, 1, 0)),
+                             indexing="ij")
+    pts = np.stack([xx, yy, zz], -1).reshape(-1, 3)
+    cam = pts @ np.swapaxes(w2c[:, :3, :3], 1, 2) + w2c[:, None, :3, 3]
+    return cam[..., 1] / cam[..., 2]
+
+
+def _tall_scene(shape, h=2200, w=48, n_views=2):
+    """``_scene``'s cameras with a vertical focal length and principal
+    point that spread the grid over 80% of ``h`` rows, and the SDFs of
+    ellipses stretched to match."""
+    spec, w2c, pp, fl, _ = _scene(shape=shape, n_views=n_views, h=h, w=w,
+                                  trunc=True)
+    yz = _projected_v(spec, w2c)
+    span = yz.max(axis=1) - yz.min(axis=1)
+    stretch = (0.8 * h / span / fl[:, 1]).astype(np.float32)
+    fl[:, 1] *= stretch
+    pp[:, 1] = h / 2 - fl[:, 1] * (yz.max(axis=1) + yz.min(axis=1)) / 2
+    yy, xx = np.mgrid[0:h, 0:w]
+    masks = np.stack(
+        [(((xx - 20 - i) / (7 + i)) ** 2
+          + ((yy - h / 2) / ((7 + i) * stretch[i])) ** 2 < 1) * 255
+         for i in range(n_views)]).astype(np.uint8)
+    imgs = make_signed_distance_field(
+        torch.from_numpy(masks), use_truncation=True,
+        truncation_band=0.3).numpy()
+    return spec, w2c, pp, fl, imgs
+
+
+@pytest.mark.parametrize("linear", [True, False], ids=["bilinear", "nn"])
+@pytest.mark.parametrize("rule", ["MAX", "WEIGHTED_AVERAGE"])
+def test_tall_views_match_jax(rule, linear):
+    """Two views of 2200 x 48 pixels into a 16^3 grid, whose voxels tap
+    rows from top to bottom of the images: the port's carve_views_warp
+    (on CPU tensors kernel A's plain version; on an H100 kernel A takes
+    such views) vs JAX's, whose CPU path is its two-pass scan. Bar of
+    test_two_pass_fold_matches_jax, which is exact for update_num at this
+    size (1e-4 of 4096 voxels), sdf within 1e-5 (XLA contracts the row
+    blend)."""
+    shape = (16, 16, 16)
+    spec, w2c, pp, fl, imgs = _tall_scene(shape)
+    kw = dict(voxel_update=tcfg.VoxelUpdate[rule],
+              update_outside=tcfg.UpdateOutsideImage.MAX,
+              use_truncation=True, truncation_band=0.3)
+    topt = tcfg.VoxelUpdateOption(**kw)
+    jopt = jcfg.VoxelUpdateOption(**{
+        k: getattr(jcfg, type(v).__name__)[v.name] if hasattr(v, "name")
+        else v for k, v in kw.items()})
+    sdf0, un0 = _initial_state(shape)
+    before = (interp_rows.launches, warp_fused.warp_fuse_planes.launches)
+    tst = fusion_warp.carve_views_warp(
+        tgrid.state_from_numpy(sdf0, un0, "cpu"), tgrid.GridSpec(*spec),
+        *(torch.from_numpy(a) for a in (w2c, pp, fl, imgs)), topt, linear)
+    assert (interp_rows.launches,
+            warp_fused.warp_fuse_planes.launches) == before
+    jst = j_carve(
+        jgrid.VoxelGridState(sdf=jnp.asarray(sdf0),
+                             update_num=jnp.asarray(un0)),
+        jgrid.GridSpec(*spec), jnp.asarray(w2c), jnp.asarray(pp),
+        jnp.asarray(fl), jnp.asarray(imgs), opt=jopt, linear=linear,
+    )
+    ts, tu = tgrid.state_to_numpy(tst)
+    np.testing.assert_array_equal(tu, np.asarray(jst.update_num))
+    _assert_close_states((ts, tu), (np.asarray(jst.sdf),
+                                    np.asarray(jst.update_num)))
+    # the voxels project over 80% of each image's rows
+    v = fl[:, 1:] * _projected_v(spec, w2c) + pp[:, 1:]
+    assert (v.max(axis=1) - v.min(axis=1) > 1700).all()
+    assert 0 < v.min() and v.max() < 2200

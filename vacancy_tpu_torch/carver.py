@@ -46,6 +46,46 @@ from .utils.debug import assert_finite
 Roi = Optional[Tuple[int, int, int, int]]
 
 
+# bytes of each of the two page-locked buffers a device-to-host copy is
+# staged through
+STAGE_BYTES = 32 << 20
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array in pageable memory that the caller owns. A
+    CUDA tensor is staged through two page-locked buffers of
+    ``STAGE_BYTES`` from PyTorch's host cache: the card copies one slice
+    into a buffer while the host copies the slice before it out of the
+    other. However many arrays the caller keeps, the page-locked memory
+    stays at those two buffers, which every call reuses."""
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    src = t.contiguous().view(-1)
+    out = torch.empty(src.shape, dtype=t.dtype)
+    step = max(1, min(src.numel(), STAGE_BYTES // t.element_size()))
+    stages = [torch.empty(step, dtype=t.dtype, pin_memory=True)
+              for _ in range(2)]
+    copied = [torch.cuda.Event(), torch.cuda.Event()]
+    stream = torch.cuda.current_stream(t.device)
+
+    def drain(k, lo, hi):
+        copied[k % 2].synchronize()
+        out[lo:hi].copy_(stages[k % 2][:hi - lo])
+
+    pending = None
+    for k, lo in enumerate(range(0, src.numel(), step)):
+        hi = min(lo + step, src.numel())
+        # the buffer's last slice was drained on the host before this
+        stages[k % 2][:hi - lo].copy_(src[lo:hi], non_blocking=True)
+        copied[k % 2].record(stream)
+        if pending is not None:
+            drain(*pending)
+        pending = (k, lo, hi)
+    if pending is not None:
+        drain(*pending)
+    return out.view(t.shape).numpy()
+
+
 class VoxelCarver:
     def __init__(self, option: Optional[VoxelCarverOption] = None,
                  device=None):
@@ -316,8 +356,13 @@ class VoxelCarver:
 
         engine: "exact" samples the 2D SDF per voxel with the reference's
         bilinear/NN semantics; "warp" runs the warp engine (the fused warp
-        kernel, or the two-pass engine for views taller than it takes and
-        for orthographic cameras; same ROI/skip-mask semantics).
+        kernel for pinhole and orthographic views of any height its launch
+        plan takes, 4K UHD included; the two-pass engine for what it
+        refuses; same ROI/skip-mask semantics).
+
+        The SDF images come back in a numpy array the caller owns; from a
+        CUDA state they are staged through two reused page-locked buffers
+        (``_host_array``).
 
         roi_min/roi_max: one inclusive image-space window applied to
         every view.
@@ -355,7 +400,7 @@ class VoxelCarver:
             self._carve_warp_one(camera, sdf_images, roi, opt)
         if debug:
             self._assert_state_finite("carve_batch: fusion state sdf")
-        return sdf_images.cpu().numpy()
+        return _host_array(sdf_images)
 
     # ------------------------------------------------------------------
     # extraction

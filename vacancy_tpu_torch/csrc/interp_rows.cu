@@ -5,8 +5,8 @@
 // tables[share ? 0 : n, r, :] at pos[n, r, t]: linear between the taps
 // floor(p) and floor(p) + 1, or nearest (rounding half up), each tap clamped
 // to [lo, hi]. It is the gather of the two-pass warp engine
-// (ops/fusion_warp.py) that runs where the fused warp kernel cannot: views
-// too tall for its shared-memory intermediate, and orthographic cameras.
+// (ops/fusion_warp.py), which runs what the fused warp kernel's launch plan
+// refuses (ops/warp_fused.py::fused_refusal) and cross-checks that kernel.
 //
 // What bounds it on the card: bytes. Each output reads its position and
 // writes its value, 8 bytes for some 15 instructions. In pass 1 every one of

@@ -10,10 +10,12 @@ is computed only over the band of image rows the CTA's voxels tap and
 lives in shared memory, ``inter_rows`` rows at a time (see the source's
 header for what bounds it and what the design does about it).
 ``fused_plan`` mirrors the launch: the grid, the rows and the bytes of
-shared memory. ``ops/fusion_warp.carve_views_warp`` sends views taller
-than ``max_fused_rows`` to the two-pass engine: the dispatch's limit is
-``h * 32`` f32 within the card's shared-memory opt-in (1816 rows on an
-H100), though the kernel holds at most ``INTER_ROWS_CAP`` rows at a time.
+shared memory. It takes views of any height: a band taller than
+``INTER_ROWS_CAP`` rows goes in chunks. ``fused_refusal`` names what the
+kernel cannot take (an empty state, more than 65535 planes or y-tiles, a
+card whose shared memory holds no two rows of the intermediate, an image
+of 2**32 pixels or more), and ``ops/fusion_warp.carve_views_warp`` sends
+only such launches to the two-pass engine.
 
 With ``ortho_rows`` the views are orthographic: the caller passes the
 synthetic homography (third row ``(0, 0, 0, 1)``, unit focal length, zero
@@ -56,18 +58,10 @@ INTER_ROWS_CAP = 384
 # the kernel's fixed shared memory: two buffers of 24 coefficients, the
 # band reduction's 2 x 8 ints and the y-tile's TILE_Y centers
 STATIC_SMEM_BYTES = 2 * 24 * 4 + 2 * 8 * 4 + TILE_Y * 4
-
-
-def max_fused_rows(optin_bytes: int) -> int:
-    """The most image rows kernel A takes when a block may opt into
-    ``optin_bytes`` of shared memory (1816 for an H100's 232,448)."""
-    return optin_bytes // (TILE_X * 4)
-
-
-def fused_fits(h: int, optin_bytes: int) -> bool:
-    """Whether ``carve_views_warp`` gives views of ``h`` rows to kernel A:
-    ``h * TILE_X`` f32 fit ``optin_bytes``."""
-    return h <= max_fused_rows(optin_bytes)
+# the kernel offsets a tap within an image by a 32-bit unsigned row start
+MAX_IMAGE_PIXELS = 2**32 - 1
+# a launch grid's y and z dimensions
+MAX_GRID_YZ = 65535
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,29 +73,45 @@ class FusedPlan:
     smem_bytes: int  # dynamic + static shared memory of a CTA
 
 
-def fused_plan(nz: int, ny: int, nx: int, h: int,
-               optin_bytes: int) -> FusedPlan:
-    """The launch for a state of ``nz x ny x nx`` voxels and views of ``h``
-    rows on a card whose blocks may opt into ``optin_bytes`` of shared
-    memory. Raises ValueError for what the kernel does not take."""
-    if min(nz, ny, nx, h) < 1:
-        raise ValueError(f"empty state or views: {(nz, ny, nx)}, {h} rows")
-    if not fused_fits(h, optin_bytes):
-        raise ValueError(
-            f"the fused warp kernel takes images of at most "
-            f"{max_fused_rows(optin_bytes)} rows ({optin_bytes} bytes of "
-            f"shared memory per block), got {h}: carve_views_warp takes the "
-            f"two-pass engine for such views")
-    grid = (-(-nx // TILE_X), nz, -(-ny // TILE_Y))
-    if grid[1] > 65535 or grid[2] > 65535:
-        raise ValueError(f"{nz} planes or {grid[2]} y-tiles exceed a grid's "
-                         f"65535")
-    rows = min(h, INTER_ROWS_CAP,
+def _inter_rows(h: int, optin_bytes: int) -> int:
+    """Rows of the intermediate a CTA holds at once."""
+    return min(h, INTER_ROWS_CAP,
                (optin_bytes - STATIC_SMEM_BYTES) // (TILE_X * 4))
-    if rows < min(h, 2):  # a chunk must hold a linear tap pair
-        raise ValueError(f"{optin_bytes} bytes of shared memory hold no "
-                         f"two rows of the intermediate")
-    return FusedPlan(grid, rows, rows * TILE_X * 4 + STATIC_SMEM_BYTES)
+
+
+def fused_refusal(nz: int, ny: int, nx: int, h: int, w: int,
+                  optin_bytes: int) -> Optional[str]:
+    """What kernel A cannot take in a launch over ``nz x ny x nx`` voxels
+    with views of ``h x w`` pixels on a card whose blocks may opt into
+    ``optin_bytes`` of shared memory, or None when it takes it: the rule
+    by which ``carve_views_warp`` gives views to kernel A."""
+    if min(nz, ny, nx, h, w) < 1:
+        return f"an empty state or views: {(nz, ny, nx)}, {h} x {w} pixels"
+    if h * w > MAX_IMAGE_PIXELS:
+        return (f"images of {h} x {w} pixels: 2**32 or more, past the "
+                f"kernel's 32-bit offsets within an image")
+    y_tiles = -(-ny // TILE_Y)
+    if max(nz, y_tiles) > MAX_GRID_YZ:
+        return (f"{nz} planes or {y_tiles} y-tiles: a grid holds at most "
+                f"{MAX_GRID_YZ}")
+    if _inter_rows(h, optin_bytes) < min(h, 2):  # a linear tap pair
+        return (f"{optin_bytes} bytes of shared memory: they hold no two "
+                f"rows of the intermediate")
+    return None
+
+
+def fused_plan(nz: int, ny: int, nx: int, h: int, w: int,
+               optin_bytes: int) -> FusedPlan:
+    """The launch for a state of ``nz x ny x nx`` voxels and views of
+    ``h x w`` pixels on a card whose blocks may opt into ``optin_bytes``
+    of shared memory. Raises ValueError for what the kernel does not take
+    (``fused_refusal``)."""
+    refusal = fused_refusal(nz, ny, nx, h, w, optin_bytes)
+    if refusal is not None:
+        raise ValueError(f"the fused warp kernel does not take {refusal}")
+    rows = _inter_rows(h, optin_bytes)
+    return FusedPlan((-(-nx // TILE_X), nz, -(-ny // TILE_Y)), rows,
+                     rows * TILE_X * 4 + STATIC_SMEM_BYTES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,10 +195,9 @@ def warp_fuse_planes(
 
     CPU tensors take the plain two-pass version. CUDA tensors launch the
     kernel once for all views (``warp_fuse_planes.launches`` counts
-    those launches) or raise: on a build failure, on inputs the kernel
-    does not take (ValueError, among them views taller than
-    ``max_fused_rows`` of the card's shared-memory opt-in limit), or on
-    a non-zero cudaError_t from the launch."""
+    those launches), whatever their height, or raise: on a build
+    failure, on inputs the kernel does not take (ValueError, from
+    ``fused_plan``), or on a non-zero cudaError_t from the launch."""
     if sdf.device.type == "cpu":
         new_sdf, new_un = warp_fuse_planes_plain(
             sdf, un, cx, cy, cz, w2c, principal_point, focal_length,
@@ -218,7 +227,7 @@ def warp_fuse_planes(
     x0, y0, x1, y1 = roi or (0, 0, w - 1, h - 1)
     if not (0 <= x0 <= x1 < w and 0 <= y0 <= y1 < h):
         raise ValueError(f"roi {roi} outside the {w}x{h} image")
-    plan = fused_plan(nz, ny, nx, h, smem_optin_bytes(sdf.device))
+    plan = fused_plan(nz, ny, nx, h, w, smem_optin_bytes(sdf.device))
     if out is None:
         out_sdf, out_un = torch.empty_like(sdf), torch.empty_like(un)
     else:

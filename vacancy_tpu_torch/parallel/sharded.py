@@ -192,7 +192,8 @@ def carve_views_warp_sharded(
     -- still zero communication on ANY grid mesh rank, the same bits as
     the single-device warp engine restricted to the block. Each block
     takes the engine ``carve_views_warp`` would pick (the fused warp
-    kernel when the views fit it, else the two-pass engine), and a block
+    kernel whenever its launch plan takes the block's shapes, views of any
+    height included, else the two-pass engine), and a block
     of more than 128 planes is fused z-chunk by z-chunk IN PLACE, as
     ``carve_views_warp_blocked`` does. ``roi`` is the reference's
     inclusive image-space (x0, y0, x1, y1) Carve window: purely
