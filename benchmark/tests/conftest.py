@@ -1,0 +1,8 @@
+"""Shared set-up of the benchmark's own tests: the benchmark's folder and
+the checkout on the import path."""
+
+import sys
+from pathlib import Path
+
+BENCH = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(BENCH), str(BENCH.parent)]
