@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from vacancy_tpu_torch import _kernels, bench, profile_turntable
+from vacancy_tpu_torch import _kernels, bench
 from vacancy_tpu_torch import config as cfg
 from vacancy_tpu_torch.grid import GridSpec, VoxelGridState
 from vacancy_tpu_torch.ops import (fusion_warp, mc_fused, warp_fused,
@@ -245,17 +245,6 @@ def test_concurrent_builds_keep_to_their_own_files(monkeypatch, tmp_path):
                for src in _kernels._sources())
 
 
-@pytest.mark.parametrize("which", ["turntable", "facade", "sweep"])
-def test_profile_refuses_a_cpu_device(which):
-    with pytest.raises(ValueError, match="CUDA"):
-        if which == "facade":
-            profile_turntable.profile_facade(8, 2, 64, 48, "cpu")
-        elif which == "sweep":
-            profile_turntable.profile_sweep(8, 2, "cpu")
-        else:
-            profile_turntable.profile_turntable(8, 2, "cpu")
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -372,28 +361,6 @@ def test_mc_kernel_equals_plain_on_gpu(cuda_device, shape, linear):
     for a, b in zip(k.as_tuple(), p.as_tuple()):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-
-@pytest.mark.cuda
-def test_profile_sees_both_kernels_on_gpu(cuda_device):
-    out = profile_turntable.profile_turntable(32, 4, cuda_device)
-    names = " ".join(s["name"] for s in out["spans"])
-    assert "warp_fused" in names and "mc_emit" in names
-    assert 0 < out["device_s"] < out["wall_s"]
-    assert out["carve_s"] > 0 and out["extract_s"] > 0
-
-
-@pytest.mark.cuda
-def test_profile_facade_sees_the_fused_kernel_on_gpu(cuda_device):
-    """Views of 2000 rows take the fused warp kernel: the facade's profile
-    shows it and no kernel C."""
-    before = (warp_fused.warp_fuse_planes.launches, interp_rows.launches)
-    out = profile_turntable.profile_facade(32, 2, 96, 2000, cuda_device)
-    names = " ".join(s["name"] for s in out["spans"])
-    assert "warp_fused" in names and "interp_rows" not in names
-    assert (warp_fused.warp_fuse_planes.launches,  # warm-up + profiled
-            interp_rows.launches) == (before[0] + 2, before[1])
-    assert 0 < out["device_s"] < out["wall_s"]
 
 
 @pytest.mark.cuda

@@ -42,6 +42,7 @@ from .parallel.sharded import (
 )
 from .utils import LOGE
 from .utils.debug import assert_finite
+from .utils.timing import span
 
 Roi = Optional[Tuple[int, int, int, int]]
 
@@ -207,12 +208,14 @@ class VoxelCarver:
 
     def _sdf_images(self, masks: torch.Tensor, roi: Roi,
                     opt: VoxelUpdateOption) -> torch.Tensor:
-        return make_signed_distance_field(
-            masks, roi, minmax_normalize=self._option.sdf_minmax_normalize,
-            use_truncation=opt.use_truncation,
-            truncation_band=opt.truncation_band,
-            sdf_scale=self._option.sdf_scale,
-        )
+        with span("sdf2d"):
+            return make_signed_distance_field(
+                masks, roi,
+                minmax_normalize=self._option.sdf_minmax_normalize,
+                use_truncation=opt.use_truncation,
+                truncation_band=opt.truncation_band,
+                sdf_scale=self._option.sdf_scale,
+            )
 
     # ------------------------------------------------------------------
     # carve
@@ -400,7 +403,8 @@ class VoxelCarver:
             self._carve_warp_one(camera, sdf_images, roi, opt)
         if debug:
             self._assert_state_finite("carve_batch: fusion state sdf")
-        return _host_array(sdf_images)
+        with span("image_return"):
+            return _host_array(sdf_images)
 
     # ------------------------------------------------------------------
     # extraction

@@ -41,6 +41,7 @@ import torch
 from ..config import UpdateOutsideImage, VoxelUpdateOption
 from ..grid import GridSpec, VoxelGridState
 from ..utils import LOGI, LOGW
+from ..utils.timing import span
 from . import warp_fused  # which imports this module: use at call time
 from .fusion import apply_view_update, carve_views
 from .warp_gather import interp_rows
@@ -296,10 +297,11 @@ def carve_views_warp(
     w2c, principal_point, focal_length, sdf_images = _batched(
         w2c, principal_point, focal_length, sdf_images)
     dev = state.sdf.device
-    sdf, un = warp_carve_centers(
-        state.sdf, state.update_num,
-        *(grid.axis_centers_t(a, dev) for a in range(3)), w2c,
-        principal_point, focal_length, sdf_images, opt, linear, roi)
+    with span("warp"):
+        sdf, un = warp_carve_centers(
+            state.sdf, state.update_num,
+            *(grid.axis_centers_t(a, dev) for a in range(3)), w2c,
+            principal_point, focal_length, sdf_images, opt, linear, roi)
     return VoxelGridState(sdf=sdf, update_num=un)
 
 
@@ -380,10 +382,11 @@ def _carve_views_warp_ortho(
     by shape before any launch, as in ``carve_views_warp``."""
     dev = state.sdf.device
     w2c_synth, zero2, one2, z_rows = ortho_homography(w2c)
-    sdf, un = warp_carve_centers(
-        state.sdf, state.update_num,
-        *(grid.axis_centers_t(a, dev) for a in range(3)), w2c_synth, zero2,
-        one2, sdf_images, opt, linear, roi, z_rows=z_rows)
+    with span("warp"):
+        sdf, un = warp_carve_centers(
+            state.sdf, state.update_num,
+            *(grid.axis_centers_t(a, dev) for a in range(3)), w2c_synth,
+            zero2, one2, sdf_images, opt, linear, roi, z_rows=z_rows)
     return VoxelGridState(sdf=sdf, update_num=un)
 
 
@@ -435,9 +438,10 @@ def carve_views_warp_blocked(
     w2c, principal_point, focal_length, sdf_images = _batched(
         w2c, principal_point, focal_length, sdf_images)
     dev = state.sdf.device
-    sdf, un = warp_carve_centers(
-        state.sdf, state.update_num,
-        *(grid.axis_centers_t(a, dev) for a in range(3)), w2c,
-        principal_point, focal_length, sdf_images, opt, linear, roi,
-        chunk_nz=chunk_nz)
+    with span("warp"):
+        sdf, un = warp_carve_centers(
+            state.sdf, state.update_num,
+            *(grid.axis_centers_t(a, dev) for a in range(3)), w2c,
+            principal_point, focal_length, sdf_images, opt, linear, roi,
+            chunk_nz=chunk_nz)
     return VoxelGridState(sdf=sdf, update_num=un)

@@ -32,6 +32,7 @@ import torch
 from ..config import INVALID_SDF
 from ..grid import GridSpec, VoxelGridState
 from ..mesh import Mesh
+from ..utils.timing import span
 from .mc_fused import (
     _edge_vertex_interp,
     assemble_fused_streams,
@@ -439,14 +440,16 @@ def _extract_mesh_dense(state, grid, iso_level, linear_interp) -> Mesh:
 def _extract_mesh_fused(state, grid, iso_level, linear_interp) -> Mesh:
     nz, ny, nx = state.sdf.shape
     dev = state.sdf.device
-    st = marching_cubes_fused(
-        state.sdf, state.update_num, grid.axis_centers_t(0, dev),
-        grid.axis_centers_t(1, dev), grid.axis_centers_t(2, dev),
-        iso_level, linear_interp,
-    )
-    host = [t.cpu().numpy() for t in st.as_tuple()[:8]]
-    vpos_parts = host[0:6:2]
-    vlin_parts = [v.astype(np.int64) for v in host[1:6:2]]
+    with span("mc_b"):
+        st = marching_cubes_fused(
+            state.sdf, state.update_num, grid.axis_centers_t(0, dev),
+            grid.axis_centers_t(1, dev), grid.axis_centers_t(2, dev),
+            iso_level, linear_interp,
+        )
+    with span("stream_copy"):
+        host = [t.cpu().numpy() for t in st.as_tuple()[:8]]
+        vpos_parts = host[0:6:2]
+        vlin_parts = [v.astype(np.int64) for v in host[1:6:2]]
     return assemble_fused_streams(
         vpos_parts, vlin_parts, host[6], host[7], ny, nx, grid
     )

@@ -47,6 +47,7 @@ from ..config import INVALID_SDF
 from ..grid import GridSpec
 from ..io.native import native_expand_faces
 from ..mesh import Mesh
+from ..utils.timing import span
 from .mc_tables import (
     CORNER_OFFSETS,
     EDGE_AXIS,
@@ -496,24 +497,31 @@ def marching_cubes_fused(
     count, scan and emit passes (``marching_cubes_fused.launches`` counts
     each such run), reading the four totals back once to size the
     outputs, or raise on inputs the kernel does not take or a non-zero
-    cudaError_t."""
+    cudaError_t. ``marching_cubes_fused.cubes`` adds up the active cubes
+    emitted: the fourth of those totals, or the plain cube stream's
+    length."""
     window = (own_k, own_j, own_i, zb, yx_base, gdims)
     if sdf.device.type == "cpu":
-        return mc_streams_plain(sdf, un, cx, cy, cz, iso_level,
-                                linear_interp, *window)
+        st = mc_streams_plain(sdf, un, cx, cy, cz, iso_level, linear_interp,
+                              *window)
+        marching_cubes_fused.cubes += len(st.c_case)
+        return st
     _check_state(sdf, un, cx, cy, cz)
     nz, ny, nx = sdf.shape
     tile_counts = mc_tile_counts(sdf, un, cx, cy, cz, iso_level,
                                  linear_interp, *window)
     tile_offsets, totals, plane_counts = mc_scan(
         tile_counts, tiles_per_plane(ny, nx))
-    outs = mc_emit(sdf, un, cx, cy, cz, tile_offsets, totals.tolist(),
+    totals = totals.tolist()
+    outs = mc_emit(sdf, un, cx, cy, cz, tile_offsets, totals,
                    iso_level, linear_interp, *window)
     marching_cubes_fused.launches += 1
+    marching_cubes_fused.cubes += totals[3]
     return McStreams(*outs, plane_counts)
 
 
 marching_cubes_fused.launches = 0
+marching_cubes_fused.cubes = 0
 
 
 _EDGE_OFF_XYZ = CORNER_OFFSETS[EDGE_OWNER]  # [12, 3] (dx, dy, dz)
@@ -597,27 +605,30 @@ def assemble_fused_streams(vpos_parts, vlin_parts, clin, ccase,
     interleave in y and x: such a caller passes ``sort=True``, and since
     each block's sub-stream ascends in its global owner id (unique per
     stream), a stable argsort by id restores the dense order exactly."""
-    if sort:
-        vpos_parts, vlin_parts = list(vpos_parts), list(vlin_parts)
+    with span("assemble"):
+        if sort:
+            vpos_parts, vlin_parts = list(vpos_parts), list(vlin_parts)
+            for a in range(3):
+                order = np.argsort(vlin_parts[a], kind="stable")
+                vlin_parts[a] = np.asarray(vlin_parts[a])[order]
+                vpos_parts[a] = np.asarray(vpos_parts[a])[order]
+            order = np.argsort(clin, kind="stable")
+            clin, ccase = np.asarray(clin)[order], np.asarray(ccase)[order]
+        centers = [grid.axis_centers(a) for a in range(3)]
+        bases = np.cumsum([0] + [len(v) for v in vlin_parts[:2]])
+        verts = np.empty((sum(len(v) for v in vlin_parts), 3), np.float32)
+        at = 0
         for a in range(3):
-            order = np.argsort(vlin_parts[a], kind="stable")
-            vlin_parts[a] = np.asarray(vlin_parts[a])[order]
-            vpos_parts[a] = np.asarray(vpos_parts[a])[order]
-        order = np.argsort(clin, kind="stable")
-        clin, ccase = np.asarray(clin)[order], np.asarray(ccase)[order]
-    centers = [grid.axis_centers(a) for a in range(3)]
-    bases = np.cumsum([0] + [len(v) for v in vlin_parts[:2]])
-    verts = np.empty((sum(len(v) for v in vlin_parts), 3), np.float32)
-    at = 0
-    for a in range(3):
-        lin = np.asarray(vlin_parts[a], np.int64)
-        n = len(lin)
-        i = lin % nx
-        j = (lin // nx) % ny
-        kk = lin // (nx * ny)
-        comps = [centers[0][i], centers[1][j], centers[2][kk]]
-        comps[a] = vpos_parts[a]
-        verts[at : at + n] = np.stack(comps, axis=-1)
-        at += n
-    faces = expand_faces(clin, ccase, ny, nx, vlin_parts, bases, native)
-    return Mesh(vertices=verts, faces=faces)
+            lin = np.asarray(vlin_parts[a], np.int64)
+            n = len(lin)
+            i = lin % nx
+            j = (lin // nx) % ny
+            kk = lin // (nx * ny)
+            comps = [centers[0][i], centers[1][j], centers[2][kk]]
+            comps[a] = vpos_parts[a]
+            verts[at : at + n] = np.stack(comps, axis=-1)
+            at += n
+        with span("expand_faces"):
+            faces = expand_faces(clin, ccase, ny, nx, vlin_parts, bases,
+                                 native)
+        return Mesh(vertices=verts, faces=faces)

@@ -62,6 +62,7 @@ from ..ops.mc_fused import (
     assemble_fused_streams,
     marching_cubes_fused,
 )
+from ..utils.timing import span
 from .mesh_utils import (
     GRID_AXES,
     Block,
@@ -208,10 +209,11 @@ def carve_views_warp_sharded(
     blocks = {}
     for b, st in sh.blocks.items():
         dev = st.sdf.device
-        *cams, z_rows = views.on(dev)
-        sdf, un = warp_carve_centers(
-            st.sdf, st.update_num, *_block_centers(grid, sh, b, dev), *cams,
-            opt, linear, roi, chunk_nz=128, z_rows=z_rows)
+        with span("warp"):
+            *cams, z_rows = views.on(dev)
+            sdf, un = warp_carve_centers(
+                st.sdf, st.update_num, *_block_centers(grid, sh, b, dev),
+                *cams, opt, linear, roi, chunk_nz=128, z_rows=z_rows)
         blocks[b] = VoxelGridState(sdf=sdf, update_num=un)
     return ShardedGridState(blocks, sh.sharding, sh.shape)
 
@@ -549,10 +551,12 @@ def marching_cubes_fused_sharded(
     out = {}
     for b in sh.blocks:
         sdf_ext, un_ext = _extended_block(sh, halos, b)
-        out[b] = marching_cubes_fused(
-            sdf_ext, un_ext, *_extended_centers(grid, sh, b, sdf_ext.device),
-            float(iso_level), bool(linear_interp),
-            **block_window(sh.sharding, sh.shape, b))
+        with span("mc_b"):
+            out[b] = marching_cubes_fused(
+                sdf_ext, un_ext,
+                *_extended_centers(grid, sh, b, sdf_ext.device),
+                float(iso_level), bool(linear_interp),
+                **block_window(sh.sharding, sh.shape, b))
         del sdf_ext, un_ext
     return out
 

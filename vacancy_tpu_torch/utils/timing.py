@@ -4,7 +4,9 @@ reference: src/vacancy/timer.h:13-46).
 ``Timer`` is the reference's start/end timer with its 30-sample rolling
 average. ``device_timer`` times a block of CUDA work with CUDA events (on
 the CPU, where nothing is asynchronous, with the host clock). ``trace``
-captures a ``torch.profiler`` trace of a scope.
+captures a ``torch.profiler`` trace of a scope. ``span`` names a stretch
+of the program's own work in such a trace, and costs a flag check when no
+profiler records.
 """
 
 from __future__ import annotations
@@ -12,10 +14,28 @@ from __future__ import annotations
 import collections
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as autograd_profiler
+from torch.profiler import record_function
+
+# what ``span`` returns when no profiler records: one context manager that
+# does nothing, shared by every call
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A ``vt.<name>`` range in a ``torch.profiler`` trace around the
+    ``with`` block while a profiler records, on the profiler's host clock;
+    otherwise the shared no-op ``_NO_SPAN``. The check reads the flag
+    that the profiler sets for this purpose when it starts and clears
+    when it stops: far cheaper than ``record_function``, which costs
+    ~13 us a call even with no profiler."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return record_function(f"vt.{name}")
 
 
 class Timer:
