@@ -52,9 +52,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      counted from 0) and against the plain fold, both bitwise, and plain MC
      (as many vertices); the fused kernel alone timed at that shape beside
      its bound, the two-pass engine and the plain fold; the carve again
-     with the SDF images returned through pageable memory and staged
-     through two page-locked buffers, in turns, every result kept, and the
-     host's resident, locked and page-locked bytes before and after.
+     with the SDF images returned in the pool's reused page-locked
+     buffers, staged through two page-locked buffers (the pool given no
+     room) and through pageable memory, in turns; then five results kept,
+     with the pool's locked bytes, VmPin and VmLck within its budget.
   9. 128^3 x 8 orthographic views of 192 rows: the fused warp kernel with
      orthographic rows vs its plain version (update_num exact, sdf bitwise)
      for MAX/WAVG x NN/bilinear; the two-pass engine (interp_rows and the
@@ -1084,8 +1085,9 @@ def phase_facade(device, n_views=36):
     and MC against its plain version; A alone timed with CUDA events
     beside its bound and the two-pass engine's and the plain fold's times
     on the same inputs; and the carve again with the SDF images returned
-    through pageable memory and staged through page-locked buffers, in
-    turns, every result kept, with the host's memory before and after."""
+    in the pool's reused page-locked buffers, staged and through pageable
+    memory, in turns; then five results kept, the pool's locked bytes,
+    VmPin and VmLck within its budget."""
     import numpy as np
     import torch
 
@@ -1140,8 +1142,8 @@ def phase_facade(device, n_views=36):
     fusions = carver.grid.num_voxels * n_views
     _phase("facade", f"VoxelCarver 512^3 x {n_views} views of 3840x2160: "
            f"carve {carve_s:.4f} s ({fusions / carve_s / 1e9:.3f} "
-           f"Gfusions/s; the SDF images staged through page-locked "
-           f"buffers), extract_iso_surface {extract_s:.4f} s "
+           f"Gfusions/s; the SDF images into a newly page-locked buffer "
+           f"of the pool), extract_iso_surface {extract_s:.4f} s "
            f"({mesh.num_vertices} vertices, {mesh.num_faces} faces), "
            f"extract_voxel {voxel_s:.4f} s ({voxels.num_vertices // 24} "
            f"voxel cubes), launches {launches}, peak mem {peak:.2f} GiB")
@@ -1202,34 +1204,67 @@ def phase_facade(device, n_views=36):
            f"plain fold {plain_ms:.1f} ms")
     del a, st, imgs_dev
 
-    # the copy of the returned SDF images: the carve with a pageable copy
-    # and with the staged copy, in turns after the timed carve above; then
-    # the host's footprint while the caller keeps every result
-    staged = carver_mod._host_array
-    host_before = _host_memory()
-    kept = [imgs]
-    pageable_s, staged_s = [], [carve_s]
-    for _ in range(2):
+    # the copy of the returned SDF images: the carve with the pool's
+    # reused page-locked buffers (each result dropped before the next),
+    # with the staged copy (the pool given no room) and with a pageable
+    # copy, in turns after the timed carve above; then the host's
+    # footprint while the caller keeps five results
+    host_array, share = carver_mod._host_array, carver_mod.PINNED_SHARE
+    count = (host_array.pinned, host_array.staged)
+    pooled_s, staged_s, pageable_s = [], [], []
+    for _ in range(3):
+        got, t = _timed_carve(carver, cams, masks)
+        pooled_s.append(t)
+        _require(np.array_equal(got, imgs), "UHD facade: the SDF images "
+                 "of two carves differ (pool)")
+        carver_mod.PINNED_SHARE = 0
+        try:
+            got, t = _timed_carve(carver, cams, masks)
+        finally:
+            carver_mod.PINNED_SHARE = share
+        staged_s.append(t)
+        _require(np.array_equal(got, imgs), "UHD facade: the SDF images "
+                 "of two carves differ (staged)")
         carver_mod._host_array = lambda t: t.cpu().numpy()
         try:
             got, t = _timed_carve(carver, cams, masks)
         finally:
-            carver_mod._host_array = staged
-        kept.append(got)
+            carver_mod._host_array = host_array
         pageable_s.append(t)
-        got, t = _timed_carve(carver, cams, masks)
-        kept.append(got)
-        staged_s.append(t)
+        _require(np.array_equal(got, imgs), "UHD facade: the SDF images "
+                 "of two carves differ (pageable)")
+    del got
+    turns = (host_array.pinned - count[0], host_array.staged - count[1])
+    _require(turns == (3, 3), f"UHD facade: {turns} carves pooled and "
+             f"staged, not 3 and 3")
+    host_before = _host_memory()
+    kept = [imgs]
+    while len(kept) < 5:
+        kept.append(_timed_carve(carver, cams, masks)[0])
     host_after = _host_memory()
-    _require(all(np.array_equal(k, imgs) for k in kept),
-             "UHD facade: the SDF images of two carves differ")
-    _phase("facade", f"carve with the SDF images staged through two "
-           f"page-locked buffers {', '.join(f'{t:.4f}' for t in staged_s)} "
-           f"s, through pageable memory "
-           f"{', '.join(f'{t:.4f}' for t in pageable_s)} s; host with "
+    budget = int(share * carver_mod._physical_bytes())
+    locked = {k: int(host_after[k].split()[0]) * 1024
+              for k in ("VmPin", "VmLck") if k in host_after}
+    _require(host_array.pinned_bytes <= budget
+             and all(v <= budget for v in locked.values()),
+             f"UHD facade: {host_array.pinned_bytes} bytes in the pool, "
+             f"{locked} locked, over the budget of {budget}")
+    _require(all(np.array_equal(k, imgs) for k in kept)
+             and len({k.ctypes.data for k in kept}) == len(kept),
+             "UHD facade: five kept results differ or share a buffer")
+    _phase("facade", f"carve with the SDF images in the pool's reused "
+           f"page-locked buffers {', '.join(f'{t:.4f}' for t in pooled_s)} "
+           f"s, staged through two page-locked buffers "
+           f"{', '.join(f'{t:.4f}' for t in staged_s)} s, through pageable "
+           f"memory {', '.join(f'{t:.4f}' for t in pageable_s)} s; with "
            f"{len(kept)} results kept ({imgs.nbytes} bytes each): "
-           f"{host_before} before the last four carves, {host_after} after")
-    del kept, imgs, got
+           f"_host_array.pinned_bytes {host_array.pinned_bytes} of a budget "
+           f"of {budget} ({share:.4g} of {carver_mod._physical_bytes()} "
+           f"bytes), pinned {host_array.pinned}, staged {host_array.staged}; "
+           f"VmPin and VmLck {locked or 'not in /proc/self/status'}; "
+           f"host {host_before} before the last four carves, {host_after} "
+           f"after")
+    del kept, imgs
     return c_err
 
 

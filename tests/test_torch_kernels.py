@@ -564,11 +564,13 @@ def test_tall_views_take_the_fused_kernel_on_gpu(cuda_device):
                          ids=["many-slices", "one-slice-left", "one-slice"])
 def test_host_array_stages_through_reused_buffers_on_gpu(
         cuda_device, monkeypatch, stage_bytes):
-    """``carver._host_array`` of a CUDA tensor: the same values as
+    """``carver._host_array`` of a CUDA tensor on its staged path (the
+    pool of page-locked buffers given no room): the same values as
     ``.cpu()``, in a pageable array of its own for each call, whatever
     the staging buffers' size against the tensor's."""
     from vacancy_tpu_torch import carver as carver_mod
 
+    monkeypatch.setattr(carver_mod, "PINNED_SHARE", 0)
     monkeypatch.setattr(carver_mod, "STAGE_BYTES", stage_bytes)
     t = torch.from_numpy(np.random.default_rng(4).normal(
         size=(3, 1001, 7)).astype(np.float32)).to(cuda_device)
@@ -579,6 +581,36 @@ def test_host_array_stages_through_reused_buffers_on_gpu(
     assert np.array_equal(b, (t * 2).cpu().numpy())
     assert not torch.from_numpy(a).is_pinned()
     assert not np.shares_memory(a, b)
+
+
+@pytest.mark.cuda
+def test_host_array_returns_reused_page_locked_buffers_on_gpu(cuda_device):
+    """``carver._host_array`` of a CUDA tensor on its pooled path: the
+    same values as ``.cpu()`` in page-locked memory, the buffer handed out
+    again once the array is dropped, and two kept results intact after a
+    third call with other values."""
+    from vacancy_tpu_torch import carver as carver_mod
+
+    count = carver_mod._host_array
+    before = (count.pinned, count.staged)
+    t = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(2, 1001, 7)).astype(np.float32)).to(cuda_device)
+    a = carver_mod._host_array(t)
+    assert a.shape == (2, 1001, 7) and a.dtype == np.float32
+    assert np.array_equal(a, t.cpu().numpy())
+    assert torch.from_numpy(a).is_pinned()
+    first = a.ctypes.data
+    del a
+    a = carver_mod._host_array(t * 2)
+    assert a.ctypes.data == first
+    b = carver_mod._host_array(t * 3)
+    c = carver_mod._host_array(t * 4)
+    assert len({a.ctypes.data, b.ctypes.data, c.ctypes.data}) == 3
+    assert np.array_equal(a, (t * 2).cpu().numpy())
+    assert np.array_equal(b, (t * 3).cpu().numpy())
+    assert np.array_equal(c, (t * 4).cpu().numpy())
+    assert (count.pinned, count.staged) == (before[0] + 4, before[1])
+    assert count.pinned_bytes == carver_mod._POOL.locked >= 3 * a.nbytes
 
 
 def test_host_array_of_a_cpu_tensor_is_its_numpy_view():

@@ -17,6 +17,10 @@ and give the same state and mesh.
 from __future__ import annotations
 
 import dataclasses
+import mmap
+import os
+import threading
+import weakref
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -50,17 +54,157 @@ Roi = Optional[Tuple[int, int, int, int]]
 # bytes of each of the two page-locked buffers a device-to-host copy is
 # staged through
 STAGE_BYTES = 32 << 20
+# the share of the host's physical memory that the page-locked output
+# buffers of _host_array may lock together
+PINNED_SHARE = 1 / 8
+
+
+def _physical_bytes() -> int:
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _pin(nbytes: int):
+    """(owner, address) of ``nbytes`` of new page-aligned host memory,
+    page-locked for every CUDA device by ``cudaHostRegister``: exactly its
+    pages, where PyTorch's host cache would round a block up to a power
+    of two and keep it pinned once freed. The pages are faulted in by
+    ``MAP_POPULATE`` first, which nearly halves the time to pin them
+    (1.19 GB on an H100's host: 0.49-0.59 s, against 0.90-0.96 s when
+    ``cudaHostRegister`` faults them in)."""
+    owner = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE
+                      | mmap.MAP_ANONYMOUS | mmap.MAP_POPULATE)
+    address = np.frombuffer(owner, np.uint8, 1).ctypes.data
+    try:
+        torch.cuda.check_error(torch.cuda.cudart().cudaHostRegister(
+            address, nbytes, 1))  # cudaHostRegisterPortable
+    except BaseException:
+        owner.close()
+        raise
+    return owner, address
+
+
+def _unpin(owner, address: int) -> None:
+    torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(address))
+    owner.close()
+
+
+class _Buffer:
+    """A page-locked buffer of ``_PinnedPool``, and the base of the arrays
+    it gives out. It is no array, so numpy stops at the given array when
+    it collapses the base of a view: every view, and every tensor over
+    one, holds that array alive."""
+
+    def __init__(self, key, owner, address: int, nbytes: int):
+        self.key, self.owner, self.address = key, owner, address
+        self.nbytes = nbytes
+        self.__array_interface__ = {"data": (address, False),
+                                    "shape": key[0], "typestr": key[1].str,
+                                    "version": 3}
+        self.lease = None  # a weakref to the array it last gave out
+
+    def free(self) -> bool:
+        return self.lease is None or self.lease() is None
+
+
+class _PinnedPool:
+    """Page-locked host buffers keyed by shape and dtype, which
+    ``_host_array`` returns its arrays over. A buffer is handed out again
+    only once the array it last gave out is dead, views and tensors of it
+    included. The buffers lock at most ``PINNED_SHARE`` of the host's
+    physical memory: a new one that would pass it first frees free
+    buffers, least recently used first, and where it still does not fit
+    ``take`` returns None. ``pin(nbytes) -> (owner, address)`` and
+    ``unpin(owner, address)`` allocate and release a buffer; counters on
+    ``_host_array``: ``pinned`` (arrays handed out), ``staged`` (None
+    returned), ``pinned_bytes`` (bytes locked now)."""
+
+    def __init__(self, pin=_pin, unpin=_unpin):
+        self.pin, self.unpin = pin, unpin
+        self.buffers = []  # least recently used first
+        self.locked = 0
+        self.lock = threading.Lock()
+
+    def take(self, shape, dtype) -> Optional[np.ndarray]:
+        """A new array of ``shape`` and ``dtype`` over a buffer that no
+        live array holds, or None where the budget has no room."""
+        shape, dtype = tuple(shape), np.dtype(dtype)
+        key = (shape, dtype)
+        with self.lock:
+            buf = next((b for b in self.buffers
+                        if b.key == key and b.free()), None)
+            if buf is None:
+                nbytes = int(np.prod(shape)) * dtype.itemsize
+                buf = self._new(key, -(-max(nbytes, 1) // mmap.PAGESIZE)
+                                * mmap.PAGESIZE)
+            if buf is None:
+                _host_array.staged += 1
+                return None
+            self.buffers.remove(buf)
+            self.buffers.append(buf)
+            out = np.asarray(buf)
+            buf.lease = weakref.ref(out)
+            _host_array.pinned += 1
+            return out
+
+    def _new(self, key, nbytes: int) -> Optional[_Buffer]:
+        budget = int(PINNED_SHARE * _physical_bytes())
+        if nbytes > budget:
+            return None
+        for b in [b for b in self.buffers if b.free()]:
+            if self.locked + nbytes <= budget:
+                break
+            self._release(b)
+        if self.locked + nbytes > budget:
+            return None
+        try:
+            owner, address = self.pin(nbytes)
+        except (OSError, RuntimeError):  # memory the host will not lock
+            return None
+        buf = _Buffer(key, owner, address, nbytes)
+        self.buffers.append(buf)
+        self._count(nbytes)
+        return buf
+
+    def _release(self, buf: _Buffer) -> None:
+        self.buffers.remove(buf)
+        self.unpin(buf.owner, buf.address)
+        self._count(-buf.nbytes)
+
+    def _count(self, nbytes: int) -> None:
+        self.locked += nbytes
+        _host_array.pinned_bytes = self.locked
+
+
+_POOL = _PinnedPool()
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:
-    """``t`` as a numpy array in pageable memory that the caller owns. A
-    CUDA tensor is staged through two page-locked buffers of
-    ``STAGE_BYTES`` from PyTorch's host cache: the card copies one slice
-    into a buffer while the host copies the slice before it out of the
-    other. However many arrays the caller keeps, the page-locked memory
-    stays at those two buffers, which every call reuses."""
+    """``t`` as a numpy array that the caller owns. A CUDA tensor is
+    copied in one DMA into a page-locked buffer of ``_POOL`` that no live
+    array holds; where the pool has no room it is staged
+    (``_staged_array``)."""
     if t.device.type != "cuda":
         return t.cpu().numpy()
+    out = _POOL.take(t.shape, torch.empty(0, dtype=t.dtype).numpy().dtype)
+    if out is None:
+        return _staged_array(t)
+    copied = torch.cuda.Event()
+    torch.from_numpy(out).copy_(t, non_blocking=True)
+    copied.record(torch.cuda.current_stream(t.device))
+    copied.synchronize()
+    return out
+
+
+_host_array.pinned = 0
+_host_array.staged = 0
+_host_array.pinned_bytes = 0
+
+
+def _staged_array(t: torch.Tensor) -> np.ndarray:
+    """The CUDA tensor ``t`` in new pageable memory, staged through two
+    page-locked buffers of ``STAGE_BYTES`` from PyTorch's host cache: the
+    card copies one slice into a buffer while the host copies the slice
+    before it out of the other."""
     src = t.contiguous().view(-1)
     out = torch.empty(src.shape, dtype=t.dtype)
     step = max(1, min(src.numel(), STAGE_BYTES // t.element_size()))
@@ -364,8 +508,8 @@ class VoxelCarver:
         refuses; same ROI/skip-mask semantics).
 
         The SDF images come back in a numpy array the caller owns; from a
-        CUDA state they are staged through two reused page-locked buffers
-        (``_host_array``).
+        CUDA state in one copy into a page-locked buffer that is reused
+        once the caller drops the array (``_host_array``).
 
         roi_min/roi_max: one inclusive image-space window applied to
         every view.
