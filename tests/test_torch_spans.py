@@ -4,7 +4,9 @@ active cubes (``marching_cubes_fused.cubes``).
 A span is a ``vt.<name>`` range in a ``torch.profiler`` trace while a
 profiler records, and one shared no-op otherwise. A facade request on
 the CPU, ``carve_batch(engine="warp")`` then ``extract_iso_surface()``,
-opens each span of the main path once, where its work happens."""
+opens each span of the main path once, where its work happens. The
+exact engine, the facade's default, opens ``vt.exact`` around its fold
+and counts the views it folds (``carve_views.views``)."""
 
 import numpy as np
 import pytest
@@ -13,7 +15,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from vacancy_tpu_torch import VoxelCarver, VoxelCarverOption
 from vacancy_tpu_torch.camera import stack_cameras
-from vacancy_tpu_torch.ops import mc_fused
+from vacancy_tpu_torch.grid import VoxelGridState
+from vacancy_tpu_torch.ops import fusion, mc_fused
 from vacancy_tpu_torch.pipeline import turntable_grid, turntable_option
 from vacancy_tpu_torch.synthetic import (blob_spheres, render_silhouettes,
                                          turntable_cameras)
@@ -152,3 +155,92 @@ def test_the_images_and_the_mesh_are_the_same_with_and_without_spans(
     np.testing.assert_array_equal(images, plain_images)
     np.testing.assert_array_equal(mesh.vertices, plain_mesh.vertices)
     np.testing.assert_array_equal(mesh.faces, plain_mesh.faces)
+
+
+@pytest.fixture(scope="module")
+def naive(scene):
+    """(a carver at the facade's defaults, which fold by the kMax rule
+    with no truncation, one camera, the stacked cameras, silhouettes) on
+    the CPU."""
+    _, cams, masks = scene
+    grid = turntable_grid(N)
+    return (VoxelCarver(VoxelCarverOption(
+        bb_min=grid.bb_min, bb_max=grid.bb_max, resolution=grid.resolution),
+        device="cpu"),
+        turntable_cameras(VIEWS, radius=3.2, width=W, height=H)[0], cams,
+        masks)
+
+
+def _spans_of(run):
+    """The ``vt.*`` names that ``run()`` opens under a CPU profiler, in
+    order of their start."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    return [name for _, name in sorted(
+        (e.time_range.start, e.name) for e in prof.events()
+        if e.name.startswith("vt."))]
+
+
+def test_an_exact_carve_batch_opens_sdf2d_then_exact_once(naive):
+    carver, _, cams, masks = naive
+    assert carver.init()
+    assert _spans_of(lambda: carver.carve_batch(cams, masks)) == [
+        "vt.sdf2d", "vt.exact", "vt.image_return"]
+
+
+def test_an_exact_carve_opens_exact_once(naive):
+    carver, cam, _, masks = naive
+    assert carver.init()
+    assert _spans_of(lambda: carver.carve(cam, silhouette=masks[0])) == [
+        "vt.sdf2d", "vt.exact"]
+    image = carver.carve(cam, silhouette=masks[1])
+    assert _spans_of(lambda: carver.carve(cam, sdf=image)) == ["vt.exact"]
+
+
+def test_the_view_counter_grows_by_the_views_exact_folds(naive):
+    carver, cam, cams, masks = naive
+    assert carver.init()
+    before = fusion.carve_views.views
+    carver.carve_batch(cams, masks)
+    assert fusion.carve_views.views == before + VIEWS
+    carver.carve(cam, silhouette=masks[0])
+    assert fusion.carve_views.views == before + VIEWS + 1
+    carver.carve_batch(cams, masks, engine="warp")
+    assert fusion.carve_views.views == before + VIEWS + 1
+
+
+def _exact(carver, cams, masks):
+    assert carver.init()
+    images = carver.carve_batch(cams, masks)
+    return images, carver.state.sdf.clone(), carver.state.update_num.clone()
+
+
+def test_the_exact_state_is_the_same_with_and_without_a_profiler(naive):
+    carver, _, cams, masks = naive
+    plain = _exact(carver, cams, masks)
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = _exact(carver, cams, masks)
+    np.testing.assert_array_equal(traced[0], plain[0])
+    assert torch.equal(traced[1].view(torch.int32), plain[1].view(torch.int32))
+    assert torch.equal(traced[2], plain[2])
+    assert int(plain[2].max()) > 1
+
+
+@pytest.mark.parametrize("tsdf", [False, True])
+def test_the_facades_exact_path_is_carve_masks(naive, tsdf):
+    """The facade takes its images from its own 2D SDF step and folds them
+    with ``carve_views``: images and state are bit for bit those of the
+    library's one-call ``carve_masks``."""
+    _, _, cams, masks = naive
+    grid = turntable_grid(N)
+    opt = turntable_option(True) if tsdf else VoxelCarverOption().update_option
+    carver = VoxelCarver(VoxelCarverOption(
+        bb_min=grid.bb_min, bb_max=grid.bb_max, resolution=grid.resolution,
+        update_option=opt), device="cpu")
+    images, sdf, un = _exact(carver, cams, masks)
+    state, want = fusion.carve_masks(
+        VoxelGridState.create(carver.grid, "cpu"), carver.grid, cams, masks,
+        opt=opt)
+    np.testing.assert_array_equal(images, want.numpy())
+    assert torch.equal(sdf.view(torch.int32), state.sdf.view(torch.int32))
+    assert torch.equal(un, state.update_num)

@@ -31,7 +31,7 @@ from .config import SdfInterpolation, VoxelCarverOption, VoxelUpdateOption
 from .grid import GridSpec, ShardedGridState, VoxelGridState
 from .mesh import Mesh
 from .ops.extract_voxel import extract_voxel_mesh
-from .ops.fusion import carve_masks, carve_views
+from .ops.fusion import carve_views
 from .ops.fusion_warp import (
     carve_views_warp,
     carve_views_warp_ortho,
@@ -397,39 +397,13 @@ class VoxelCarver:
             assert_finite("carve: input sdf image", sdf)
         if sdf is None:
             assert silhouette is not None, "need a silhouette or an sdf image"
-            if engine == "warp":
-                sdf_img = self._sdf_images(self._tensor(silhouette), roi, opt)
-                self._carve_warp_one(camera, sdf_img, roi, opt)
-                out = sdf_img
-            elif self._mesh is not None:
-                out = self._sdf_images(self._tensor(silhouette)[None], roi,
-                                       opt)[0]
-                self._carve_exact_sharded(camera, out, roi, opt)
-            else:
-                self._state, sdf_images = carve_masks(
-                    self._state, self._grid, camera,
-                    self._tensor(silhouette), roi=roi, opt=opt,
-                    sdf_minmax_normalize=self._option.sdf_minmax_normalize,
-                    sdf_scale=self._option.sdf_scale, debug=debug,
-                )
-                out = sdf_images[0]
+            out = self._sdf_images(self._tensor(silhouette), roi, opt)
         else:
             out = self._tensor(sdf, torch.float32)
-            if engine == "warp":
-                self._carve_warp_one(camera, out, roi, opt)
-            elif self._mesh is not None:
-                self._carve_exact_sharded(camera, out, roi, opt)
-            else:
-                ortho = isinstance(camera, OrthoCamera)
-                zero2 = torch.zeros(2, dtype=torch.float32,
-                                    device=self._device)
-                self._state = carve_views(
-                    self._state, self._grid, camera.w2c,
-                    zero2 if ortho else camera.principal_point,
-                    zero2 if ortho else camera.focal_length, out, roi=roi,
-                    opt=opt, projection="ortho" if ortho else "pinhole",
-                    debug=debug,
-                )
+        if engine == "warp":
+            self._carve_warp_one(camera, out, roi, opt)
+        else:
+            self._carve_exact(camera, out, roi, opt, debug)
         if debug:
             self._assert_state_finite("carve: fusion state sdf")
         return out.cpu().numpy()
@@ -441,18 +415,29 @@ class VoxelCarver:
         else:
             assert_finite(name, self._state.sdf)
 
-    def _carve_exact_sharded(self, camera: Camera, sdf_images: torch.Tensor,
-                             roi: Roi, opt: VoxelUpdateOption) -> None:
-        """One view or a batch through the exact engine, block by block."""
+    def _carve_exact(self, camera: Camera, sdf_images: torch.Tensor,
+                     roi: Roi, opt: VoxelUpdateOption,
+                     debug: bool = False) -> None:
+        """One view or a batch through the exact engine: ``carve_views``
+        on a dense state (``debug`` as there), block by block on a
+        sharded one."""
         ortho = isinstance(camera, OrthoCamera)
-        zero2 = torch.zeros(camera.w2c.shape[:-2] + (2,),
-                            dtype=torch.float32, device=self._device)
-        self._state = carve_views_sharded(
-            self._state, self._grid, camera.w2c,
-            zero2 if ortho else camera.principal_point,
-            zero2 if ortho else camera.focal_length, sdf_images, roi=roi,
-            opt=opt, mesh=self._mesh,
-            projection="ortho" if ortho else "pinhole")
+        w2c = camera.w2c
+        if sdf_images.ndim == 2 and w2c.ndim == 3:  # a stacked camera of one
+            sdf_images = sdf_images[None]
+        zero2 = torch.zeros(w2c.shape[:-2] + (2,), dtype=torch.float32,
+                            device=self._device)
+        pp = zero2 if ortho else camera.principal_point
+        fl = zero2 if ortho else camera.focal_length
+        projection = "ortho" if ortho else "pinhole"
+        if self._mesh is not None:
+            self._state = carve_views_sharded(
+                self._state, self._grid, w2c, pp, fl, sdf_images, roi=roi,
+                opt=opt, mesh=self._mesh, projection=projection)
+        else:
+            self._state = carve_views(
+                self._state, self._grid, w2c, pp, fl, sdf_images, roi=roi,
+                opt=opt, projection=projection, debug=debug)
 
     def _carve_warp_one(self, camera: Camera, sdf_img: torch.Tensor,
                         roi: Roi, opt: VoxelUpdateOption) -> None:
@@ -470,7 +455,7 @@ class VoxelCarver:
             w2c = camera.w2c if camera.w2c.ndim == 3 else camera.w2c[None]
             views = ortho_warp_views(w2c)
             if views is None:  # image v decoupled from world y
-                self._carve_exact_sharded(camera, sdf_img, roi, opt)
+                self._carve_exact(camera, sdf_img, roi, opt)
                 return
             synth, zero2, one2, z_rows = views
             self._state = carve_views_warp_sharded(
@@ -529,19 +514,11 @@ class VoxelCarver:
         roi = self._roi(camera, roi_min, roi_max)
         opt = self._effective_update_option()
         masks = self._tensor(silhouettes)
-        if engine == "exact" and self._mesh is not None:
-            sdf_images = self._sdf_images(
-                masks[None] if masks.ndim == 2 else masks, roi, opt)
-            self._carve_exact_sharded(camera, sdf_images, roi, opt)
-        elif engine == "exact":
-            self._state, sdf_images = carve_masks(
-                self._state, self._grid, camera, masks, roi=roi, opt=opt,
-                sdf_minmax_normalize=self._option.sdf_minmax_normalize,
-                sdf_scale=self._option.sdf_scale, debug=debug,
-            )
+        sdf_images = self._sdf_images(
+            masks[None] if masks.ndim == 2 else masks, roi, opt)
+        if engine == "exact":
+            self._carve_exact(camera, sdf_images, roi, opt, debug)
         else:
-            sdf_images = self._sdf_images(
-                masks[None] if masks.ndim == 2 else masks, roi, opt)
             if debug:
                 assert_finite("carve_batch: 2D SDF images", sdf_images)
             self._carve_warp_one(camera, sdf_images, roi, opt)
