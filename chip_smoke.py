@@ -133,11 +133,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      a (2,) mesh; rank 0's meshes == phase 5's byte for byte, rank 1 gets
      None; the line names the transport. A worker that fails, or is not
      done after 300 s, fails the run.
+ 20. the exact engine's kernel E vs its plain version (update_num exact,
+     sdf bitwise) at the exact cell's shape: 36 turntable views of 320 x
+     240, min-max normalised and untruncated, into the empty 512^3 grid
+     (kMax, bilinear, outside NONE); 8 more views on the fused state with
+     the weighted average, truncation, nearest taps and outside = MAX;
+     the facade's default carve (no engine named) launches E once and
+     the warp kernel never, and leaves E's state. E and kernel A at the
+     same shape and options timed in turns (CUDA events), E beside its
+     bound, the plain fold once; E's registers, shared memory and spills.
 Then one JSON line of per-kernel results (A's, B's and the scan's
 launches summed over phases 12 and 17; C's from phase 13's two-pass run
 of carve_views_warp_blocked, its path in this script since the fused warp
-kernel takes the UHD views), and as the last line {"ok": true, "device":
-{...}}. No JAX is imported.
+kernel takes the UHD views; E's on phase 20's facade carve), and as the
+last line {"ok": true, "device": {...}}. No JAX is imported.
 
     python3 chip_smoke.py --interp-only [--compare-source FILE]
 
@@ -1475,6 +1484,130 @@ def phase_ortho_exact(device):
            f"{float(err.max()):.3e}; carve_batch exact {e_s:.3f} s, warp "
            f"{w_s:.3f} s (first calls)")
     return a_err, a_ms, two_ms
+
+
+# float32 operations of the exact engine's fold per voxel and view, as
+# benchmark/harness/roofline_exact.py counts them from the per-voxel Carve
+EXACT_OPS_PER_FUSION = 66
+
+
+def phase_exact(device):
+    """Kernel E against its plain version at the exact cell's shape: 36
+    turntable views of 320 x 240 (min-max normalised, untruncated SDFs)
+    into the empty 512^3 grid, kMax, bilinear, outside NONE; then on the
+    fused state a second fold of 8 views; the facade at its defaults
+    (carve_batch with no engine named) launches E once and no warp kernel
+    and leaves the same state. E, the plain fold and kernel A at the same
+    shape and options are timed (CUDA events), E beside its bound; E's
+    registers from the build log and its peak over the two states."""
+    import torch
+
+    from vacancy_tpu_torch import VoxelCarver, VoxelCarverOption
+    from vacancy_tpu_torch import _kernels
+    from vacancy_tpu_torch import config as cfg
+    from vacancy_tpu_torch.grid import VoxelGridState
+    from vacancy_tpu_torch.ops.exact_fused import (
+        THREADS,
+        exact_fold,
+        exact_fold_plain,
+    )
+    from vacancy_tpu_torch.ops.warp_fused import warp_fuse_planes
+    from vacancy_tpu_torch.pipeline import turntable_inputs, turntable_masks
+
+    n, n_views = 512, 36
+    grid, _, cams, imgs = turntable_inputs(n, n_views, False, device)
+    opt = cfg.VoxelUpdateOption()
+    st = VoxelGridState.create(grid, device)
+    h, w = imgs.shape[1:]
+    roi = (0, 0, w - 1, h - 1)
+    centers = [grid.axis_centers_t(a, device) for a in range(3)]
+    views = (cams.w2c, cams.principal_point, cams.focal_length)
+
+    def args_of(state, k=n_views, opt=opt):
+        return (state.sdf, state.update_num, *centers,
+                *(t[:k] for t in views), imgs[:k],
+                imgs[:k].amax(dim=(1, 2)), roi, opt)
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = exact_fold.launches
+    ks, ku = exact_fold(*args_of(st))
+    torch.cuda.synchronize()
+    e_peak = torch.cuda.max_memory_allocated() - held
+    _require(exact_fold.launches == before + 1, "E: not one launch")
+    ps, pu = exact_fold_plain(*args_of(st))
+    torch.cuda.synchronize()
+    _require(torch.equal(ku, pu), "E 512^3x36: update_num differs")
+    _require(torch.equal(_bits(ks), _bits(ps)), "E 512^3x36: sdf bits")
+    both = torch.isfinite(ks) & torch.isfinite(ps)
+    e_err = float((ks[both] - ps[both]).abs().max())
+    fused = float((ku > 0).float().mean())
+    _require(fused > 0.05, "E 512^3x36: nothing fused")
+    del ps, pu
+    # kMax folds the same views again to no change: the second fold takes
+    # the weighted average, truncation, nearest taps and outside = MAX
+    wavg = cfg.VoxelUpdateOption(
+        voxel_update=cfg.VoxelUpdate.WEIGHTED_AVERAGE,
+        sdf_interp=cfg.SdfInterpolation.NN,
+        update_outside=cfg.UpdateOutsideImage.MAX, use_truncation=True)
+    again = VoxelGridState(ks, ku)
+    ks2, ku2 = exact_fold(*args_of(again, 8, wavg))
+    ps2, pu2 = exact_fold_plain(*args_of(again, 8, wavg))
+    torch.cuda.synchronize()
+    _require(torch.equal(ku2, pu2) and torch.equal(_bits(ks2), _bits(ps2)),
+             "E on the fused state, 8 views: != plain")
+    _require(not torch.equal(ku2, ku), "E: the second fold changed nothing")
+    del ks2, ku2, ps2, pu2
+    _phase("exact", f"{n}^3 x {n_views} x {w}x{h} kMax bilinear: E == plain "
+           f"fold (update_num exact, sdf bitwise; fused {fused:.3f} of "
+           f"voxels); 8 more views on the fused state (weighted average, "
+           f"truncation, nearest, outside = MAX) likewise")
+
+    # the facade at its defaults: the exact engine, E once, no warp kernel
+    _, masks = turntable_masks(n_views, device)
+    carver = VoxelCarver(VoxelCarverOption(
+        bb_min=grid.bb_min, bb_max=grid.bb_max, resolution=grid.resolution),
+        device)
+    _require(carver.init(), "VoxelCarver.init")
+    exact_fold.launches = 0
+    warp_fuse_planes.launches = 0
+    carver.carve_batch(cams, masks)
+    torch.cuda.synchronize()
+    facade_launches = exact_fold.launches
+    _require((facade_launches, warp_fuse_planes.launches) == (1, 0),
+             "the facade's default carve: need E once, A never")
+    _require(torch.equal(carver.state.update_num, ku)
+             and torch.equal(_bits(carver.state.sdf), _bits(ks)),
+             "the facade's default carve != E on the same images")
+    del carver
+
+    bound = _bound(2 * _nbytes(st.sdf, st.update_num) + _nbytes(imgs),
+                   grid.num_voxels * n_views * EXACT_OPS_PER_FUSION)
+    a_args = (st.sdf, st.update_num, *centers, *views, imgs, opt, True)
+    rows = []
+    for _ in range(2):  # E, A, A, E
+        e_ms = _cuda_ms(lambda: exact_fold(*args_of(st)), 10)
+        a_ms = _cuda_ms(lambda: warp_fuse_planes(*a_args), 10)
+        rows.append((e_ms, a_ms))
+    plain_ms = _cuda_ms(lambda: exact_fold_plain(*args_of(st)), 1)
+    regs, smem = _usage_of("exact_fused_kernel")
+    lib = _kernels.load()
+    _require(regs == lib.vt_exact_tiling(4), "the build log and the loaded "
+             "library disagree on kernel E")
+    e_ms = min(r[0] for r in rows)
+    nf = grid.num_voxels * n_views
+    _phase("exact", f"E {', '.join(f'{r[0]:.3f}' for r in rows)} ms "
+           f"({nf / e_ms / 1e6:.3f} Gfusions/s, {bound[0] / e_ms:.2%} of the "
+           f"{bound[0]:.3f} ms bound by {bound[1]}); kernel A at the same "
+           f"shape and options {', '.join(f'{r[1]:.3f}' for r in rows)} ms; "
+           f"plain fold {plain_ms:.1f} ms; E's peak over the input state "
+           f"{e_peak} bytes (the output state {2 * _nbytes(st.sdf)}); E's "
+           f"{sum('exact_fused_kernel' in k for k in _kernel_usage())} "
+           f"variants at most {regs} registers, {smem} bytes of static shared "
+           f"memory, {lib.vt_exact_tiling(5)} bytes spilled, "
+           f"{_ctas_per_sm(regs, THREADS)} CTAs of {THREADS} threads per SM")
+    return facade_launches, e_err, e_ms, plain_ms, bound
 
 
 def phase_probe(device):
@@ -2864,6 +2997,7 @@ def main() -> int:
     del sweep_ref
     _, a_222_err, b_222_err = phase_mesh_222(device, turntable_mesh)
     phase_two_ranks(turntable_mesh)
+    e_launches, e_err, e_ms, e_plain, e_bound = phase_exact(device)
 
     def on_sweeps(name):
         """Launches on the unsharded sweep and both sharded sweeps."""
@@ -2902,6 +3036,9 @@ def main() -> int:
               float(max(scan_small_err, scan["err"])), scan["ms"],
               scan["plain_ms"],
               scan["bound"], scan["library_ms"]),
+        entry("exact_fused", "exact_fused.cu",
+              "none: vacancy_tpu/ops/fusion.py folds in plain jnp",
+              e_launches, e_err, e_ms, e_plain, e_bound),
     ]
     _require(all(k["launches"] > 0 for k in kernels),
              f"a kernel was not launched on its path: {kernels}")

@@ -208,9 +208,9 @@ def test_carve_masks_matches_jax(projection, single):
 
 
 def test_debug_fold_flags_nan():
-    """debug=True: a NaN sampled from the image or generated by the
-    weighted-average update raises FloatingPointError; a clean fold
-    passes."""
+    """debug=True: a NaN in the SDF images or in the folded state (here
+    carried through the weighted-average update) raises
+    FloatingPointError; a clean fold passes."""
     spec, w2c, pp, fl, imgs, (sdf0, un0) = _case("pinhole")
     grid = tgrid.GridSpec(*spec)
     args = (torch.from_numpy(w2c), torch.from_numpy(pp), torch.from_numpy(fl))
@@ -221,7 +221,7 @@ def test_debug_fold_flags_nan():
                         debug=True)
     bad = imgs.copy()
     bad[:, 10:20, 10:30] = np.nan
-    with pytest.raises(FloatingPointError, match="sampled distance"):
+    with pytest.raises(FloatingPointError, match="SDF images"):
         tfusion.carve_views(st, grid, *args, torch.from_numpy(bad),
                             debug=True)
     poisoned = sdf0.copy()
@@ -230,3 +230,33 @@ def test_debug_fold_flags_nan():
         tfusion.carve_views(tgrid.state_from_numpy(poisoned, un0, "cpu"),
                             grid, *args, torch.from_numpy(imgs), opt=wavg,
                             debug=True)
+
+
+def test_plain_fold_debug_flags_nan_per_view():
+    """``fold_views(debug=True)``, the plain fold, checks each view: a NaN
+    sampled from an image names the view's sampled distance, one in the
+    state the view's fusion state; a clean fold passes."""
+    spec, w2c, pp, fl, imgs, (sdf0, un0) = _case("pinhole")
+    grid = tgrid.GridSpec(*spec)
+    views = (torch.from_numpy(w2c), torch.from_numpy(pp),
+             torch.from_numpy(fl))
+    roi = (0, 0, imgs.shape[2] - 1, imgs.shape[1] - 1)
+    wavg = tcfg.VoxelUpdateOption(
+        voxel_update=tcfg.VoxelUpdate.WEIGHTED_AVERAGE)
+    centers = grid.centers_zyx("cpu")
+
+    def fold(sdf, images, opt=tcfg.VoxelUpdateOption()):
+        t = torch.from_numpy(images)
+        return tfusion.fold_views(
+            torch.from_numpy(sdf), torch.from_numpy(un0), centers, *views,
+            t, t.amax(dim=(1, 2)), roi, opt, debug=True)
+
+    fold(sdf0, imgs, wavg)
+    bad = imgs.copy()
+    bad[:, 10:20, 10:30] = np.nan
+    with pytest.raises(FloatingPointError, match="view 0: sampled distance"):
+        fold(sdf0, bad)
+    poisoned = sdf0.copy()
+    poisoned[un0 > 0] = np.nan
+    with pytest.raises(FloatingPointError, match="view 0: fusion state"):
+        fold(poisoned, imgs, wavg)

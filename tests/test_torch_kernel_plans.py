@@ -1,11 +1,13 @@
 """The launch plans of the port's redesigned kernels, on the CPU.
 
-Kernel A (``csrc/warp_fused.cu``), kernel B's scan (``csrc/mc_fused.cu``)
-and kernel C (``csrc/interp_rows.cu``) run only on a card; what decides
-their launches is plain Python (``warp_fused.fused_plan``,
-``mc_fused.scan_blocks``, ``warp_gather.interp_plan``) or is small enough
-to emulate here in numpy and torch: the tiling must cover every voxel,
-tile or output exactly once, fit the card's shared memory and registers,
+Kernel A (``csrc/warp_fused.cu``), kernel B's scan (``csrc/mc_fused.cu``),
+kernel C (``csrc/interp_rows.cu``) and kernel E (``csrc/exact_fused.cu``)
+run only on a card; what decides their launches is plain Python
+(``warp_fused.fused_plan``, ``mc_fused.scan_blocks``,
+``warp_gather.interp_plan``, ``exact_fused.exact_plan`` and
+``exact_refusal``) or is small enough to emulate here in numpy and torch:
+the tiling must cover every voxel, tile or output exactly once, fit the
+card's shared memory and registers,
 the blocked scan must be ``torch.cumsum``, and kernel C's indexing into
 its staged copy of a row (or straight into the row) must give
 ``interp_rows_plain`` bit for bit. The last tests hold ``warp_fuse_planes`` on
@@ -16,7 +18,9 @@ the voxels, and where it agrees the sdf is finite in the same places and
 within 1e-5 (XLA on the CPU contracts multiply-adds that the port rounds
 twice); with nearest-neighbour sampling at most 2e-4 of the voxels (one
 of the 8880 at 6 x 37 x 40) may take the neighbouring pixel instead, where
-a sample position lies within an ulp of a half pixel.
+a sample position lies within an ulp of a half pixel. The last tests hold
+every ctypes signature in ``_kernels._SIGNATURES`` against its C entry
+point's parameters.
 """
 
 import re
@@ -32,7 +36,8 @@ from vacancy_tpu.ops.warp_fused import _extend_centers
 from vacancy_tpu.ops.warp_fused import warp_fuse_planes as j_fuse_planes
 from vacancy_tpu_torch import config as tcfg
 from vacancy_tpu_torch import grid as tgrid
-from vacancy_tpu_torch.ops import mc_fused, warp_fused, warp_gather
+from vacancy_tpu_torch import _kernels
+from vacancy_tpu_torch.ops import exact_fused, mc_fused, warp_fused, warp_gather
 from vacancy_tpu_torch.ops.warp_gather import interp_plan, interp_rows_plain
 
 H100_OPTIN = 232_448  # bytes of shared memory a block may opt into
@@ -484,3 +489,112 @@ def test_kernel_c_indexing_equals_plain(case, linear):
     got = _emulate_interp(plan, tables, pos, width, share, lo, hi, linear)
     ref = interp_rows_plain(tables, pos, width, linear, share, lo, hi)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+# kernel E (csrc/exact_fused.cu): a CTA owns 32 x by 8 y, a thread 8
+# consecutive z of its (y, x) column
+EXACT_SHAPES = [
+    (1, 1, 1), (13, 21, 45), (8, 8, 32), (9, 9, 33), (17, 3, 100),
+    (512, 512, 512), (65535 * 8, 1, 1), (1, 65535 * 8, 1),
+]
+
+
+@pytest.mark.parametrize("shape", EXACT_SHAPES,
+                         ids=["x".join(map(str, s)) for s in EXACT_SHAPES])
+def test_exact_plan_covers_every_voxel_once(shape):
+    """The grid, walked as the kernel walks it (x = bx * 32 + lane,
+    y = by * 8 + warp, z = bz * 8 + r), covers every voxel once; the
+    grid's y and z dimensions fit the card."""
+    nz, ny, nx = shape
+    gx, gy, gz = exact_fused.exact_plan(nz, ny, nx, 240, 320,
+                                        (0, 0, 319, 239))
+    assert gy <= 65535 and gz <= 65535
+    assert exact_fused.THREADS == exact_fused.TILE_X * exact_fused.TILE_Y
+    # each axis is cut on its own: count the cover of each and multiply
+    covers = []
+    for n, blocks, per in ((nx, gx, exact_fused.TILE_X),
+                           (ny, gy, exact_fused.TILE_Y),
+                           (nz, gz, exact_fused.VPT)):
+        idx = (np.arange(blocks)[:, None] * per
+               + np.arange(per)[None, :]).reshape(-1)
+        seen = np.bincount(idx[idx < n], minlength=n)
+        covers.append(seen)
+        assert blocks == -(-n // per) and len(seen) == n
+    assert all((c == 1).all() for c in covers)
+
+
+# (nz, ny, nx, h, w, roi, what the refusal names): E's true limits -- a
+# grid's 65535 CTAs along y and z, 32-bit signed offsets within an image,
+# taps that must lie inside the image
+EXACT_REFUSED = [
+    (65535 * 8 + 1, 8, 8, 48, 40, None, "65535"),
+    (8, 65535 * 8 + 1, 8, 48, 40, None, "65535"),
+    (8, 8, 8, 46341, 46341, None, "2\\*\\*31"),
+    (8, 8, 8, 2**31, 1, None, "2\\*\\*31"),
+    (8, 8, 8, 48, 40, (0, 0, 40, 47), "roi"),
+    (8, 8, 8, 48, 40, (-1, 0, 39, 47), "roi"),
+    (8, 8, 8, 48, 40, (5, 0, 4, 47), "roi"),
+    (8, 8, 8, 48, 40, (0, 0, 39, 48), "roi"),
+    (8, 0, 8, 48, 40, None, "empty"),
+]
+
+
+@pytest.mark.parametrize("case", EXACT_REFUSED,
+                         ids=[c[-1].replace("\\", "") + f"-{i}"
+                              for i, c in enumerate(EXACT_REFUSED)])
+def test_exact_refusal_names_what_the_kernel_cannot_take(case):
+    nz, ny, nx, h, w, roi, what = case
+    roi = roi or (0, 0, max(w - 1, 0), max(h - 1, 0))
+    assert re.search(what, exact_fused.exact_refusal(nz, ny, nx, h, w, roi))
+    with pytest.raises(ValueError, match=what):
+        exact_fused.exact_plan(nz, ny, nx, h, w, roi)
+
+
+def test_exact_refusal_takes_the_limits_themselves():
+    # 65535 CTAs along y and z, one pixel under 2**31, a one-pixel ROI
+    assert exact_fused.exact_refusal(65535 * 8, 65535 * 8, 8, 48, 40,
+                                     (0, 0, 39, 47)) is None
+    assert exact_fused.exact_refusal(8, 8, 8, 1, 2**31 - 1,
+                                     (0, 0, 2**31 - 2, 0)) is None
+    assert exact_fused.exact_refusal(8, 8, 8, 48, 40, (7, 9, 7, 9)) is None
+    # the benchmark's shape, and the largest grid a state holds
+    assert exact_fused.exact_refusal(512, 512, 512, 240, 320,
+                                     (0, 0, 319, 239)) is None
+    assert exact_fused.exact_refusal(1290, 1290, 1290, 2160, 3840,
+                                     (0, 0, 3839, 2159)) is None
+
+
+def _c_signature(name):
+    """The kinds ('p' pointer, 'i' int, 'f' float) of the parameters of
+    the C entry point ``name`` in csrc/*.cu."""
+    for src in _kernels._sources():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)",
+                      src.read_text())
+        if m:
+            kinds = []
+            for p in m.group(1).split(","):
+                p = " ".join(p.split())
+                kinds.append("p" if "*" in p else
+                             "f" if p.startswith("float") else
+                             "i" if p.startswith("int") else p)
+            return kinds
+    raise AssertionError(f"no C entry point {name} in csrc/")
+
+
+def _ctypes_kind(t):
+    import ctypes
+
+    if t is ctypes.c_void_p or (isinstance(t, type)
+                                and issubclass(t, ctypes._Pointer)):
+        return "p"
+    return {ctypes.c_int: "i", ctypes.c_float: "f"}[t]
+
+
+@pytest.mark.parametrize("name", sorted(_kernels._SIGNATURES))
+def test_signatures_match_the_c_entry_points(name):
+    """Each ``_SIGNATURES`` entry declares the C entry point's parameters
+    in order: a pointer where C takes one, an int for an int, a float for
+    a float (ctypes would otherwise pass a pointer cut to 32 bits, or a
+    float as an int)."""
+    assert [_ctypes_kind(t) for t in _kernels._SIGNATURES[name]] == (
+        _c_signature(name))

@@ -12,15 +12,20 @@ never run anything but the plain version on a CPU tensor and refuse any
 other device, and that a missing nvcc is an error, not a fallback.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from vacancy_tpu_torch import _kernels, bench
 from vacancy_tpu_torch import config as cfg
+from vacancy_tpu_torch.camera import stack_cameras
 from vacancy_tpu_torch.grid import GridSpec, VoxelGridState
-from vacancy_tpu_torch.ops import (fusion_warp, mc_fused, warp_fused,
-                                   warp_gather)
+from vacancy_tpu_torch.ops import (exact_fused, fusion, fusion_warp,
+                                   mc_fused, warp_fused, warp_gather)
+from vacancy_tpu_torch.ops.exact_fused import exact_fold, exact_fold_plain
+from vacancy_tpu_torch.synthetic import turntable_cameras
 from vacancy_tpu_torch.ops.warp_fused import warp_fuse_planes_plain
 from vacancy_tpu_torch.ops.warp_gather import interp_rows, interp_rows_plain
 from vacancy_tpu_torch.ops.sdf2d import make_signed_distance_field
@@ -122,6 +127,157 @@ def _density_state(shape, density, device, seed=9):
     return [torch.from_numpy(a).to(device) for a in (
         sdf, un, grid.axis_centers(0), grid.axis_centers(1),
         grid.axis_centers(2))]
+
+
+# kernel E's cases: a grid whose x, y and z are no multiples of its tiling
+# (a CTA owns 32 x by 8 y, a thread 8 z), images of 37 x 53 pixels
+EXACT_SHAPE = (13, 21, 45)
+EXACT_CAP = 3
+
+
+def _exact_grid(projection, shape=EXACT_SHAPE):
+    """Pinhole: [-1.1, 1.1]-ish world units; ortho: unit voxels."""
+    nz, ny, nx = shape
+    if projection == "pinhole":
+        res = 2.2 / max(shape)
+        return GridSpec((-1.1,) * 3, tuple(-1.1 + (n + 0.4) * res
+                                           for n in (nx, ny, nz)), res)
+    return GridSpec((0.0,) * 3, (nx + 0.4, ny + 0.4, nz + 0.4), 1.0)
+
+
+def _exact_case(projection, device, n_views=5, shape=EXACT_SHAPE, h=37,
+                w=53, seed=3):
+    """Kernel E's arguments but the ROI and options: a partly fused state
+    with frozen voxels (update_num past ``EXACT_CAP``), the grid's axis
+    centres, random-normal images and their maxima, and cameras that leave
+    voxels behind them, at z_cam == 0 and outside the image. Pinhole: a
+    turntable of ``n_views - 1`` views whose frame the grid overfills,
+    then a camera with the identity rotation whose image plane holds the
+    grid's middle z-plane. Ortho: unit voxels seen by cameras turned about
+    world y, the first standing inside the grid, the grid off the
+    images' centres."""
+    nz, ny, nx = shape
+    rng = np.random.default_rng(seed)
+    grid = _exact_grid(projection, shape)
+    if projection == "pinhole":
+        cams = stack_cameras(turntable_cameras(
+            n_views - 1, 2.4, width=w, height=h, fov_y_deg=40.0))
+        w2c = np.concatenate([cams.w2c.numpy(), np.eye(4, dtype=np.float32)[
+            None]])
+        w2c[-1, :3, 3] = [0.05, -0.02, -grid.axis_centers(2)[nz // 2]]
+        pp = np.concatenate([cams.principal_point.numpy(),
+                             [[w / 2 - 0.3, h / 2 + 0.2]]]).astype(np.float32)
+        fl = np.concatenate([cams.focal_length.numpy(),
+                             [[9.0, 8.5]]]).astype(np.float32)
+    else:
+        center = np.array([nx, ny, nz]) / 2
+        w2c = np.tile(np.eye(4, dtype=np.float32), (n_views, 1, 1))
+        for i in range(n_views):
+            ang = -0.5 + 1.0 * i / max(n_views - 1, 1)
+            c, s_ = np.cos(ang), np.sin(ang)
+            rot = np.array([[c, 0.0, s_], [0.0, 1.0, 0.0], [-s_, 0.0, c]])
+            w2c[i, :3, :3] = rot
+            depth = 0.0 if i == 0 else 2.0 * nz
+            # off centre, so that the grid leaves the image at two edges
+            w2c[i, :3, 3] = [w / 2 + 6, h / 2 + 10, depth] - rot @ center
+        pp = fl = np.zeros((n_views, 2), np.float32)
+    assert grid.shape_zyx == shape
+    un = rng.integers(0, EXACT_CAP + 3, size=shape).astype(np.int32)
+    sdf = rng.normal(size=shape).astype(np.float32)
+    sdf[un == 0] = cfg.INVALID_SDF
+    imgs = rng.normal(size=(n_views, h, w)).astype(np.float32)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (
+        sdf, un, grid.axis_centers(0), grid.axis_centers(1),
+        grid.axis_centers(2), w2c, pp, fl, imgs)]
+    return t + [t[-1].amax(dim=(1, 2))]
+
+
+def _exact_opt(interp, rule, outside, trunc):
+    return cfg.VoxelUpdateOption(
+        voxel_update=cfg.VoxelUpdate[rule],
+        sdf_interp=cfg.SdfInterpolation[interp],
+        update_outside=cfg.UpdateOutsideImage[outside],
+        use_truncation=trunc, truncation_band=0.4,
+        voxel_max_update_num=EXACT_CAP, voxel_update_weight=0.7)
+
+
+def _exact_roi(kind, h=37, w=53):
+    return (0, 0, w - 1, h - 1) if kind == "full" else (4, 3, w - 8, h - 6)
+
+
+@pytest.mark.parametrize("projection", ["pinhole", "ortho"])
+def test_exact_case_holds_every_skip(projection):
+    """The cases kernel E is held to on the card reach every branch of the
+    fold: voxels behind a camera, at z_cam == 0 (pinhole: a whole plane),
+    outside the image and inside it, and frozen."""
+    _, un, _, _, _, w2c, pp, fl, _, _ = _exact_case(projection, "cpu")
+    pos = _exact_grid(projection).centers_zyx("cpu")
+    behind = at_zero = outside = inside = 0
+    for i in range(w2c.shape[0]):
+        r, t = w2c[i, :3, :3], w2c[i, :3, 3]
+        cam = [pos[..., 0] * r[k, 0] + pos[..., 1] * r[k, 1]
+               + pos[..., 2] * r[k, 2] + t[k] for k in range(3)]
+        if projection == "pinhole":
+            u = fl[i, 0] / cam[2] * cam[0] + pp[i, 0]
+            v = fl[i, 1] / cam[2] * cam[1] + pp[i, 1]
+        else:
+            u, v = cam[0], cam[1]
+        ok = (cam[2] >= 0) & torch.isfinite(u) & torch.isfinite(v)
+        hit = ok & (u >= 0) & (u <= 52) & (v >= 0) & (v <= 36)
+        behind += int((cam[2] < 0).sum())
+        at_zero += int((cam[2] == 0).sum())
+        outside += int((ok & ~hit).sum())
+        inside += int(hit.sum())
+    assert behind > 0 and outside > 0 and inside > 0
+    assert at_zero >= (EXACT_SHAPE[1] * EXACT_SHAPE[2]
+                       if projection == "pinhole" else 0)
+    assert int((un > EXACT_CAP).sum()) > 0 and int((un == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("projection", ["pinhole", "ortho"])
+@pytest.mark.parametrize("rule", ["MAX", "WEIGHTED_AVERAGE"])
+def test_exact_fold_on_cpu_equals_fold_views(rule, projection):
+    """On CPU tensors the wrapper is its plain version, the centres'
+    meshgrid and ``fusion.fold_views``, and counts no launch."""
+    before = (exact_fold.launches, exact_fold.views)
+    *args, max_sdfs = _exact_case(projection, "cpu")
+    opt = _exact_opt("BILINEAR", rule, "MAX", True)
+    roi = _exact_roi("roi")
+    sdf0, un0 = args[0].clone(), args[1].clone()
+    ks, ku = exact_fold(*args, max_sdfs, roi, opt, projection)
+    ps, pu = fusion.fold_views(
+        args[0], args[1], _exact_grid(projection).centers_zyx("cpu"),
+        *args[5:], max_sdfs, roi, opt, projection)
+    assert torch.equal(ku, pu)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert torch.equal(args[0], sdf0) and torch.equal(args[1], un0)
+    assert bool((ku != un0).any())
+    assert (exact_fold.launches, exact_fold.views) == before
+
+
+def test_carve_views_on_cpu_takes_the_plain_fold():
+    """``carve_views`` on a CPU state folds through ``exact_fold``'s plain
+    version, with ``debug=True`` as without, and counts every view but no
+    launch of kernel E."""
+    sdf, un, _, _, _, w2c, pp, fl, imgs, _ = _exact_case("pinhole", "cpu")
+    grid = _exact_grid("pinhole")
+    before = (exact_fold.launches, fusion.carve_views.views)
+    state = VoxelGridState(sdf, un)
+    a = fusion.carve_views(state, grid, w2c, pp, fl, imgs)
+    b = fusion.carve_views(state, grid, w2c, pp, fl, imgs, debug=True)
+    assert torch.equal(a.update_num, b.update_num)
+    assert torch.equal(a.sdf.view(torch.int32), b.sdf.view(torch.int32))
+    assert (exact_fold.launches, fusion.carve_views.views) == (
+        before[0], before[1] + 2 * w2c.shape[0])
+
+
+def test_exact_fold_refuses_devices_other_than_cpu_and_cuda():
+    *args, max_sdfs = [t.to("meta") for t in _exact_case("pinhole", "cpu")]
+    before = exact_fold.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        exact_fold(*args, max_sdfs, _exact_roi("full"),
+                   cfg.VoxelUpdateOption())
+    assert exact_fold.launches == before
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
@@ -941,3 +1097,153 @@ def test_mc_kernel_refuses_ids_past_int32_on_gpu(cuda_device):
         mc_fused.marching_cubes_fused(*args, zb=2047, gdims=(1024, 1024))
     with pytest.raises(ValueError, match="leave the global plane"):
         mc_fused.marching_cubes_fused(*args, yx_base=(0, 4), gdims=(8, 8))
+
+
+def _fold_on_gpu_and_plain(args, max_sdfs, roi, opt, projection):
+    """E once (its launch and views counted) and its plain version on the
+    same CUDA tensors; the inputs must come back unwritten."""
+    sdf0, un0 = args[0].clone(), args[1].clone()
+    before = (exact_fold.launches, exact_fold.views)
+    ks, ku = exact_fold(*args, max_sdfs, roi, opt, projection)
+    torch.cuda.synchronize()
+    assert (exact_fold.launches, exact_fold.views) == (
+        before[0] + 1, before[1] + args[5].shape[0])
+    ps, pu = exact_fold_plain(*args, max_sdfs, roi, opt, projection)
+    torch.cuda.synchronize()
+    assert exact_fold.launches == before[0] + 1  # the plain version: none
+    assert torch.equal(args[0].view(torch.int32), sdf0.view(torch.int32))
+    assert torch.equal(args[1], un0)
+    return (ks, ku), (ps, pu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("roi", ["full", "roi"])
+@pytest.mark.parametrize("projection", ["pinhole", "ortho"])
+@pytest.mark.parametrize("trunc", [False, True], ids=["no-trunc", "trunc"])
+@pytest.mark.parametrize("outside", ["NONE", "MAX"])
+@pytest.mark.parametrize("rule", ["MAX", "WEIGHTED_AVERAGE"])
+@pytest.mark.parametrize("interp", ["NN", "BILINEAR"])
+def test_exact_kernel_equals_fold_views_on_gpu(cuda_device, interp, rule,
+                                               outside, trunc, projection,
+                                               roi):
+    """Kernel E == ``fusion.fold_views`` bit for bit on a ragged grid with
+    voxels behind the camera, at z_cam == 0, outside the image and frozen,
+    for every option the launch takes."""
+    *args, max_sdfs = _exact_case(projection, cuda_device)
+    opt = _exact_opt(interp, rule, outside, trunc)
+    (ks, ku), (ps, pu) = _fold_on_gpu_and_plain(args, max_sdfs,
+                                                _exact_roi(roi), opt,
+                                                projection)
+    assert torch.equal(ku, pu)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert bool((ku != args[1]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["MAX", "WEIGHTED_AVERAGE"])
+def test_exact_kernel_over_many_views_and_tiles_on_gpu(cuda_device, rule):
+    """More views than a CTA holds coefficients for at once (the chunks of
+    64), and a grid of several tiles along every axis with ragged edges."""
+    *args, max_sdfs = _exact_case("pinhole", cuda_device, n_views=70,
+                                  shape=(19, 17, 70), h=60, w=80)
+    opt = dataclasses.replace(
+        _exact_opt("BILINEAR", rule, "NONE", rule != "MAX"),
+        voxel_max_update_num=255)
+    roi = _exact_roi("full", 60, 80)
+    (ks, ku), (ps, pu) = _fold_on_gpu_and_plain(args, max_sdfs, roi, opt,
+                                                "pinhole")
+    assert torch.equal(ku, pu)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    # the views past the first chunk change the state
+    first = exact_fold(*args[:5], *(t[:64] for t in args[5:]),
+                       max_sdfs[:64], roi, opt)
+    assert not (torch.equal(first[1], ku)
+                and torch.equal(first[0].view(torch.int32),
+                                ks.view(torch.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("debug", [False, True])
+def test_carve_views_launches_the_exact_kernel_on_gpu(cuda_device, debug):
+    """``carve_views`` on a CUDA state folds through E once per call, with
+    ``debug`` as without, to ``fold_views``' state, and counts the
+    views."""
+    sdf, un, _, _, _, w2c, pp, fl, imgs, _ = _exact_case("pinhole",
+                                                         cuda_device)
+    grid = _exact_grid("pinhole")
+    state = VoxelGridState(sdf, un)
+    before = (exact_fold.launches, exact_fold.views,
+              fusion.carve_views.views)
+    got = fusion.carve_views(state, grid, w2c, pp, fl, imgs, debug=debug)
+    ref = fusion.fold_views(sdf, un, grid.centers_zyx(cuda_device), w2c, pp,
+                            fl, imgs, imgs.amax(dim=(1, 2)),
+                            (0, 0, imgs.shape[2] - 1, imgs.shape[1] - 1),
+                            cfg.VoxelUpdateOption())
+    torch.cuda.synchronize()
+    assert (exact_fold.launches, exact_fold.views,
+            fusion.carve_views.views) == (
+        before[0] + 1, before[1] + w2c.shape[0], before[2] + w2c.shape[0])
+    assert torch.equal(got.update_num, ref[1])
+    assert torch.equal(got.sdf.view(torch.int32), ref[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(2,), (2, 2)], ids=["z", "zy"])
+def test_sharded_exact_carve_launches_the_exact_kernel_per_block_on_gpu(
+        cuda_device, mesh_shape):
+    """``carve_views_sharded`` on the one card folds each block through E
+    once, with the block's own axis centres, and the blocks gather to the
+    dense plain fold bit for bit (blocks of 7 z by 11 y: no multiple of
+    E's tiling)."""
+    from vacancy_tpu_torch import parallel as tpar
+
+    shape = (14, 22, 45)
+    sdf, un, _, _, _, w2c, pp, fl, imgs, max_sdfs = _exact_case(
+        "pinhole", cuda_device, shape=shape)
+    grid = _exact_grid("pinhole", shape)
+    opt = _exact_opt("BILINEAR", "WEIGHTED_AVERAGE", "MAX", True)
+    roi = _exact_roi("partial")
+    n_blocks = int(np.prod(mesh_shape))
+    mesh = tpar.make_device_mesh(shape=mesh_shape,
+                                 devices=[cuda_device] * n_blocks)
+    before = (exact_fold.launches, exact_fold.views)
+    out = tpar.carve_views_sharded(VoxelGridState(sdf, un), grid, w2c, pp,
+                                   fl, imgs, roi=roi, opt=opt, mesh=mesh)
+    assert (exact_fold.launches, exact_fold.views) == (
+        before[0] + n_blocks, before[1] + n_blocks * w2c.shape[0])
+    got = out.gather()
+    ref = fusion.fold_views(sdf, un, grid.centers_zyx(cuda_device), w2c, pp,
+                            fl, imgs, max_sdfs, roi, opt)
+    torch.cuda.synchronize()
+    assert torch.equal(got.update_num, ref[1])
+    assert torch.equal(got.sdf.view(torch.int32), ref[0].view(torch.int32))
+    assert bool((ref[1] != un).any())
+
+
+@pytest.mark.cuda
+def test_exact_kernel_refuses_before_launch_on_gpu(cuda_device):
+    """A ROI outside the image is refused with a ValueError before any
+    launch; so are a wrong dtype and a wrong per-view shape."""
+    *args, max_sdfs = _exact_case("pinhole", cuda_device)
+    before = exact_fold.launches
+    opt = cfg.VoxelUpdateOption()
+    with pytest.raises(ValueError, match="roi"):
+        exact_fold(*args, max_sdfs, (0, 0, 53, 36), opt)
+    with pytest.raises(TypeError):
+        exact_fold(args[0].double(), *args[1:], max_sdfs,
+                   _exact_roi("full"), opt)
+    with pytest.raises(ValueError, match="max_sdfs"):
+        exact_fold(*args, max_sdfs[:-1], _exact_roi("full"), opt)
+    assert exact_fold.launches == before
+
+
+@pytest.mark.cuda
+def test_exact_kernel_tiling_matches_the_build_on_gpu(cuda_device):
+    """The built kernel's tiling is the wrapper's, its 32 variants keep to
+    the register budget of four CTAs per SM, and none spills."""
+    lib = _kernels.load()
+    assert tuple(lib.vt_exact_tiling(i) for i in range(4)) == (
+        exact_fused.TILE_X, exact_fused.TILE_Y, exact_fused.VPT,
+        exact_fused.THREADS)
+    assert 0 < lib.vt_exact_tiling(4) <= exact_fused.REGISTER_BUDGET
+    assert lib.vt_exact_tiling(5) == 0

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "vt_mc_emit": ([_P] * 5 + [_I] * 3 + [_F, _I, _IP] + [_P, _IP]
                    + [_P] * 9),
     "vt_probe_scale": [_P, _P, _I, _P],
+    "vt_exact_fold": [_P] * 9 + [_I] * 16 + [_F, _F, _P],
+    "vt_exact_tiling": [_I],
 }
 
 

@@ -499,9 +499,10 @@ class VoxelCarver:
         roi_min/roi_max: one inclusive image-space window applied to
         every view.
 
-        debug: NaN/Inf checks (utils/debug.py). The exact engine checks
-        each view's sampled distance and the state after each view; the
-        warp engine checks its input images and the resulting state."""
+        debug: NaN/Inf checks (utils/debug.py) of the 2D SDF images and
+        of the resulting state, once per call and not after each view,
+        on either engine (the exact engine's kernel E folds every view
+        in one launch)."""
         if self._state is None:
             raise RuntimeError("carve_batch: grid not initialized")
         if engine not in ("exact", "warp"):

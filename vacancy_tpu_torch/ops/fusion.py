@@ -6,8 +6,10 @@ the 2D SDF image there (NN or bilinear, the reference's
 ``SdfInterpolationNn`` / ``SdfInterpolationBiliner``,
 voxel_carver.cc:16-76), then applies the update rule with the
 reference's first-touch / cap / truncation semantics
-(voxel_carver.cc:78-95, 442-491). It is plain PyTorch: the JAX package
-has no Pallas kernel here either.
+(voxel_carver.cc:78-95, 442-491). ``fold_views`` is plain PyTorch (the
+JAX package has no Pallas kernel here either) and is the plain version of
+kernel E (``ops/exact_fused``), which ``carve_views`` launches on a CUDA
+state.
 
 ``apply_view_update`` is shared with the warp engine and, as the same
 expressions in C++, with the fused warp kernel (``csrc/warp_fused.cu``).
@@ -35,6 +37,7 @@ from ..config import (
 from ..grid import GridSpec, VoxelGridState
 from ..utils.debug import assert_finite, assert_no_nan
 from ..utils.timing import span
+from . import exact_fused
 from .sdf2d import make_signed_distance_field
 
 
@@ -244,11 +247,15 @@ def carve_views(
 ) -> VoxelGridState:
     """Fuse a batch of views into the grid state (the reference's Carve),
     views in order. Accepts a single view (unbatched args) or a stacked
-    batch; ``debug`` as in ``fold_views``.
+    batch. ``debug=True`` checks the input SDF images and the folded
+    state for NaN/Inf, raising FloatingPointError: once per call, not per
+    view as ``fold_views``' own ``debug`` does, so a non-finite value that
+    a later view overwrites goes unseen.
 
-    The exact engine's one entry on a dense state: the centres and the
-    fold run in the span ``vt.exact``, and ``carve_views.views`` counts
-    the views folded."""
+    The exact engine's one entry on a dense state: the fold runs in the
+    span ``vt.exact``, and ``carve_views.views`` counts the views folded.
+    It is ``exact_fused.exact_fold``: kernel E on a CUDA state, this
+    module's ``fold_views`` on a CPU one."""
     if w2c.ndim == 2:
         w2c = w2c[None]
         principal_point = principal_point[None]
@@ -257,14 +264,20 @@ def carve_views(
     views, h, w = sdf_images.shape
     if roi is None:
         roi = (0, 0, w - 1, h - 1)
+    if debug:
+        assert_finite("carve_views: 2D SDF images", sdf_images)
+    dev = state.sdf.device
     with span("exact"):
         # per-image max over the *whole* image (voxel_carver.cc:436)
         max_sdfs = sdf_images.amax(dim=(1, 2))
-        sdf, un = fold_views(
-            state.sdf, state.update_num, grid.centers_zyx(state.sdf.device),
-            w2c, principal_point, focal_length, sdf_images, max_sdfs, roi,
-            opt, projection, debug,
+        sdf, un = exact_fused.exact_fold(
+            state.sdf, state.update_num,
+            *(grid.axis_centers_t(a, dev) for a in range(3)), w2c,
+            principal_point, focal_length, sdf_images, max_sdfs, roi, opt,
+            projection,
         )
+    if debug:
+        assert_finite("carve_views: fusion state sdf", sdf)
     carve_views.views += views
     return VoxelGridState(sdf=sdf, update_num=un)
 

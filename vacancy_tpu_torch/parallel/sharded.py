@@ -48,7 +48,7 @@ import torch
 from ..config import INVALID_SDF, VoxelUpdateOption
 from ..grid import GridSpec, ShardedGridState, VoxelGridState
 from ..mesh import Mesh as TriMesh
-from ..ops.fusion import fold_views
+from ..ops.exact_fused import exact_fold
 from ..ops.fusion_warp import warp_carve_centers
 from ..ops.marching_cubes import (
     _DENSE_MAX_VOXELS,
@@ -152,7 +152,9 @@ def carve_views_sharded(
     Zero-communication data parallelism over space: every voxel's update
     depends only on its own position plus the cameras and images. Any
     grid mesh rank (z / (z, y) / (z, y, x) blocks). ``state`` is a
-    ``ShardedGridState`` or a dense state, which is cut first."""
+    ``ShardedGridState`` or a dense state, which is cut first. Each block
+    folds through ``exact_fold`` with its own axis centres: one launch of
+    kernel E on a CUDA block, the plain fold on a CPU one."""
     sh = _as_sharded(state, mesh)
     w2c, principal_point, focal_length, sdf_images = _batched(
         w2c, principal_point, focal_length, sdf_images)
@@ -164,10 +166,8 @@ def carve_views_sharded(
     blocks = {}
     for b, st in sh.blocks.items():
         dev = st.sdf.device
-        cx, cy, cz = _block_centers(grid, sh, b, dev)
-        zz, yy, xx = torch.meshgrid(cz, cy, cx, indexing="ij")
-        sdf, un = fold_views(st.sdf, st.update_num,
-                             torch.stack([xx, yy, zz], dim=-1),
+        sdf, un = exact_fold(st.sdf, st.update_num,
+                             *_block_centers(grid, sh, b, dev),
                              *views.on(dev), roi, opt, projection)
         blocks[b] = VoxelGridState(sdf=sdf, update_num=un)
     return ShardedGridState(blocks, sh.sharding, sh.shape)

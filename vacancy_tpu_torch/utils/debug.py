@@ -5,9 +5,11 @@ results with ``assert_finite`` (the INVALID_SDF sentinel is float32
 lowest, which is finite, so a plain scan is exact). The JAX package also
 runs its exact fold under checkify's float checks (``checked_call``),
 which flag NaNs generated inside the compiled step; PyTorch has no
-checkify, so the port's exact fold checks each view's sampled distance
-for NaN and the updated state for NaN/Inf instead
-(``ops/fusion.fold_views``). Each check reads a count back to the host.
+checkify, and the port's exact engine folds every view of a call in one
+launch of kernel E, so ``ops/fusion.carve_views`` checks the SDF images
+before the fold and the state after it instead (``fold_views``, the
+plain fold, can still check each view's sampled distance and state).
+Each check reads a count back to the host.
 """
 
 from __future__ import annotations
