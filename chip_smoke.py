@@ -81,12 +81,14 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      carve_views_warp (bitwise); the fused warp kernel == plain on one
      128-plane chunk x 100 views; the MC kernel == plain on a 64-plane slab
      of the fused state (the plain version's dense temporaries do not fit
-     1024^3), and on the whole grid the fused engine's mesh == the z-slab
-     torch routine's byte for byte; the native face expansion == numpy byte
-     for byte on the whole mesh, both timed; the scan pass timed at 1024^3;
-     the fused warp kernel's time per chunk and the MC passes' times, each
-     beside the parent's, its bound and its launches on the sweep; the
-     share of non-empty tiles.
+     1024^3), and on the whole grid the kernel's mesh == the plain
+     version's over a (16,) mesh of CPU blocks (emission windows and
+     global-id bases) byte for byte, timed, with the process's peak host
+     RSS; the native face expansion == numpy byte for byte on the whole
+     mesh, both timed; the scan pass timed at 1024^3; the fused warp
+     kernel's time per chunk and the MC passes' times, each beside the
+     parent's, its bound and its launches on the sweep; the share of
+     non-empty tiles.
  13. the z-chunked carve of UHD views: 1024^3 x 2 views of 3840 x 2160
      through carve_views_warp_blocked, on the fused warp kernel (once per
      chunk, interp_rows 0), then on the two-pass engine (interp_rows 32
@@ -97,9 +99,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      == the plain fold.
  14. the bench entry point in process: one JSON line, every key present and
      no value null; the probe kernel launched once.
- 15. extract_mesh(engine="xla") == engine="fused" byte for byte on the 256^3
-     sphere (dense and z-slab routines), both timed; a checkpoint of that
-     state saved and loaded back equal.
+ 15. a checkpoint of the 256^3 sphere's state saved and loaded back
+     equal.
  16. the MC kernel with emission windows and global-id bases vs its plain
      version, byte-identical tile counts, streams and plane counts: the
      eight halo-extended blocks of a (2, 2, 2) split of a random 256^3 state
@@ -114,8 +115,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      `--mesh-shape 2,2` (z and y blocks: the sorted assembly). Every block of
      each sharded state == the slice of the unsharded state (update_num
      exact, sdf bitwise); each mesh and PLY == phase 12's byte for byte;
-     engine="xla" on the (4,) mesh gives the same mesh; the fused warp kernel
-     == plain on one chunk of a [512, 512, 1024] block; the windowed MC
+     the fused warp kernel == plain on one chunk of a [512, 512, 1024]
+     block; the windowed MC
      kernel == plain on the first 64 planes (halo plane included) of the
      (4,) block [258, 1024, 1024] and of the (2, 2) block [514, 514, 1024]
      with its row window and bases; the MC passes timed on the (4,) block;
@@ -129,10 +130,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      (`--worker`), both on cuda:0, with a (2, 2) mesh spanning them at
      512^3 x 36: initialize_distributed, carve_views_warp_sharded (blocks ==
      the dense carve), a per-process checkpoint round trip,
-     extract_mesh_sharded(engine="fused", piece_dir=...) and engine="xla" on
-     a (2,) mesh; rank 0's meshes == phase 5's byte for byte, rank 1 gets
-     None; the line names the transport. A worker that fails, or is not
-     done after 300 s, fails the run.
+     extract_mesh_sharded(engine="fused", piece_dir=...); rank 0's mesh ==
+     phase 5's byte for byte, rank 1 gets None; the line names the
+     transport. A worker that fails, or is not done after 300 s, fails the
+     run.
  20. the exact engine's kernel E vs its plain version (update_num exact,
      sdf bitwise) at the exact cell's shape: 36 turntable views of 320 x
      240, min-max normalised and untruncated, into the empty 512^3 grid
@@ -165,6 +166,9 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from benchmark.harness.roofline import bound_s, warp_a_bound_s
+from benchmark.harness.roofline_exact import exact_bound_s
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -200,43 +204,25 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
-# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# 3.35 TB/s, 67 TFLOP/s of float32 outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
-
-
 def _bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the least time the card could take to move
-    ``n_bytes`` (each input read once, each output written once) and to do
-    ``n_ops`` float32 operations, whichever is larger."""
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by): ``roofline.bound_s`` in milliseconds, the
+    least time the card could take to move ``n_bytes`` (each input read
+    once, each output written once) and to do ``n_ops`` float32
+    operations, whichever is larger."""
+    secs, by = bound_s(n_bytes, n_ops)
+    return secs * 1e3, by
 
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# float32 operations of the fused warp kernel, counted from its source:
-# per voxel and view (pass 2: three 4-operation sums, two divisions, four
-# multiply-adds, the clip, the blend, the masks and the update) and per
-# (z-plane, image row, x) and view (pass 1: u_eq and the blend)
-WARP_OPS_PER_FUSION = 48
-WARP_OPS_PER_PASS1 = 30
-
-
-def _warp_bound(sdf, un, imgs, n_views, linear=True):
-    """Kernel A's bound. Pass 1 is counted only over the rows a (z, x)
-    column of voxels can tap: each voxel taps two rows (bilinear) or one,
-    so a column of ny voxels needs at most min(h, 2 ny) rows."""
-    nz, ny, nx = sdf.shape
-    rows = min(imgs.shape[1], (2 if linear else 1) * ny)
-    return _bound(
-        2 * _nbytes(sdf, un) + _nbytes(imgs),
-        n_views * (sdf.numel() * WARP_OPS_PER_FUSION
-                   + nz * rows * nx * WARP_OPS_PER_PASS1))
+def _warp_bound(sdf, imgs, n_views, linear=True):
+    """Kernel A's bound (``roofline.warp_a_bound_s``) in milliseconds,
+    folding the ``n_views`` images ``imgs`` into a state shaped like
+    ``sdf``."""
+    secs, by = warp_a_bound_s(*sdf.shape, n_views, *imgs.shape[1:], linear)
+    return secs * 1e3, by
 
 
 def phase_device():
@@ -388,7 +374,7 @@ def phase_warp(device):
     a = (st.sdf, st.update_num,
          *(grid.axis_centers_t(i, device) for i in range(3)), w2c, pp, fl,
          imgs)
-    bound = _warp_bound(st.sdf, st.update_num, imgs, 24)
+    bound = _warp_bound(st.sdf, imgs, 24)
     ks, ku = warp_fuse_planes(*a, opt, True)
     ps, pu = warp_fuse_planes_plain(*a, opt, True)
     torch.cuda.synchronize()
@@ -1200,7 +1186,7 @@ def phase_facade(device, n_views=36):
     # kernel A alone at the facade's shape, beside its bound and the
     # two-pass engine on the same inputs
     a_ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 5)
-    bound = _warp_bound(st.sdf, st.update_num, imgs_dev, n_views)
+    bound = _warp_bound(st.sdf, imgs_dev, n_views)
     two_ms = _cuda_ms(lambda: warp_fold(*a, None, warp_gather.interp_rows), 1)
     plain_ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes_plain(*a), 1)
     plan = warp_fused.fused_plan(*st.sdf.shape, *imgs_dev.shape[1:],
@@ -1390,7 +1376,7 @@ def phase_ortho_exact(device):
                                         z_rows=z_rows), 5)
     plain_ms = _cuda_ms(
         lambda: warp_fuse_planes_plain(*a, True, None, z_rows), 3)
-    a_bound = _warp_bound(st.sdf, st.update_num, imgs, len(cams))
+    a_bound = _warp_bound(st.sdf, imgs, len(cams))
     _phase("ortho", f"128^3x8 wavg bilinear, 192 rows: two-pass engine with "
            f"kernel C == plain fold (update_num exact, sdf bitwise); fused "
            f"kernel {a_ms:.3f} ms, two-pass engine {two_ms:.3f} ms, plain "
@@ -1486,11 +1472,6 @@ def phase_ortho_exact(device):
     return a_err, a_ms, two_ms
 
 
-# float32 operations of the exact engine's fold per voxel and view, as
-# benchmark/harness/roofline_exact.py counts them from the per-voxel Carve
-EXACT_OPS_PER_FUSION = 66
-
-
 def phase_exact(device):
     """Kernel E against its plain version at the exact cell's shape: 36
     turntable views of 320 x 240 (min-max normalised, untruncated SDFs)
@@ -1582,8 +1563,8 @@ def phase_exact(device):
              "the facade's default carve != E on the same images")
     del carver
 
-    bound = _bound(2 * _nbytes(st.sdf, st.update_num) + _nbytes(imgs),
-                   grid.num_voxels * n_views * EXACT_OPS_PER_FUSION)
+    secs, by = exact_bound_s(*st.sdf.shape, n_views, *imgs.shape[1:])
+    bound = (secs * 1e3, by)
     a_args = (st.sdf, st.update_num, *centers, *views, imgs, opt, True)
     rows = []
     for _ in range(2):  # E, A, A, E
@@ -1929,7 +1910,7 @@ def phase_sweep(device, n=1024, n_views=100):
              "sweep chunk: fused warp kernel sdf bits != plain")
     a_err = float((blocked.sdf[zs] - ps).abs().nan_to_num(0).max())
     ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 3)
-    bound = _warp_bound(a[0], a[1], imgs, n_views, linear)
+    bound = _warp_bound(a[0], imgs, n_views, linear)
     del a, ps, pu
     torch.cuda.empty_cache()
     at_full = (n, n_views) == (1024, 100)
@@ -1976,21 +1957,35 @@ def phase_sweep(device, n=1024, n_views=100):
                             back.vertices.view(np.int32))
              and np.array_equal(mesh.faces, back.faces),
              "the sweep's PLY differs from the mesh of the same inputs")
-    # and the whole grid through the other engine: the plain-torch z-slab
-    # routine walks all n^3 voxels in slabs that fit, so the kernel's linear
-    # ids are held up to n^3 - 1 and not only inside one slab
-    from vacancy_tpu_torch.ops.marching_cubes import extract_mesh
+    # and the whole grid through B's plain version: a z mesh of CPU blocks
+    # walks all n^3 voxels block by block with emission windows and
+    # global-id bases, so the kernel's linear ids are held up to n^3 - 1
+    # and not only inside one slab; 64 planes a block keep each block's
+    # dense temporaries (some 60 bytes per voxel) to a few GiB of host
+    import resource
 
+    from vacancy_tpu_torch.parallel import (
+        extract_mesh_sharded,
+        make_device_mesh,
+    )
+
+    cpu_blocks = max(1, n // 64)
     t0 = time.perf_counter()
-    slabs = extract_mesh(blocked, grid, engine="xla")
-    xla_s = time.perf_counter() - t0
-    _require(np.array_equal(slabs.faces, mesh.faces)
-             and np.array_equal(slabs.vertices.view(np.int32),
+    plain = extract_mesh_sharded(
+        blocked, grid, make_device_mesh(shape=(cpu_blocks,),
+                                        devices=["cpu"] * cpu_blocks))
+    plain_s = time.perf_counter() - t0
+    _require(np.array_equal(plain.faces, mesh.faces)
+             and np.array_equal(plain.vertices.view(np.int32),
                                 mesh.vertices.view(np.int32)),
-             f"sweep: extract_mesh(engine='xla') != the fused engine at {n}^3")
-    del slabs
-    _phase("sweep", f"{n}^3: extract_mesh(engine='xla') (z-slabs, {xla_s:.3f} "
-           f"s) == the fused engine's mesh byte for byte")
+             f"sweep: the plain mesh over {cpu_blocks} CPU blocks != the "
+             f"kernel's at {n}^3")
+    del plain
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    _phase("sweep", f"{n}^3: the kernel's whole mesh == the plain version's "
+           f"over a ({cpu_blocks},) mesh of CPU blocks byte for byte "
+           f"({plain_s:.3f} s; the process's peak host RSS so far "
+           f"{rss:.2f} GiB)")
     _phase("sweep", f"MC kernel == plain on planes [{ks.start}, {ks.stop}) "
            f"({slab_cubes} active cubes; counts and 4 streams "
            f"byte-identical); native face expansion == numpy on the whole "
@@ -2170,44 +2165,14 @@ def phase_bench(device):
     return launches
 
 
-def phase_xla_checkpoint(device):
-    """The torch dense and z-slab MC routines against the fused engine on
-    the 256^3 sphere, and a checkpoint round trip of that state."""
-    import numpy as np
+def phase_checkpoint(device):
+    """A checkpoint round trip of the 256^3 sphere's state."""
     import torch
 
     from vacancy_tpu_torch.bench import _sphere_state
     from vacancy_tpu_torch.checkpoint import load_state, save_state
-    from vacancy_tpu_torch.ops.marching_cubes import (
-        extract_mesh,
-        extract_mesh_blocked,
-    )
 
     grid, st = _sphere_state(256, device=device)
-    meshes, secs = {}, {}
-    for name, fn in (
-        ("fused", lambda: extract_mesh(st, grid, engine="fused")),
-        ("xla", lambda: extract_mesh(st, grid, engine="xla")),
-        ("xla z-slabs", lambda: extract_mesh_blocked(st, grid, slab_nz=48)),
-    ):
-        fn()  # warm-up
-        t0 = time.perf_counter()
-        meshes[name] = fn()
-        secs[name] = time.perf_counter() - t0
-    ref = meshes["fused"]
-    _require(ref.num_faces > 100_000, "256^3 sphere: too few faces")
-    for name in ("xla", "xla z-slabs"):
-        m = meshes[name]
-        _require(np.array_equal(m.faces, ref.faces)
-                 and np.array_equal(m.vertices.view(np.int32),
-                                    ref.vertices.view(np.int32)),
-                 f"extract_mesh {name} != fused")
-    _phase("xla-mc", f"256^3 sphere ({ref.num_vertices} vertices, "
-           f"{ref.num_faces} faces): engine='xla' (dense) and the z-slab "
-           f"routine == engine='fused' byte for byte; fused "
-           f"{secs['fused']:.4f} s, xla {secs['xla']:.4f} s, z-slabs "
-           f"{secs['xla z-slabs']:.4f} s")
-
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "sphere_256")
         t0 = time.perf_counter()
@@ -2570,13 +2535,6 @@ def phase_sharded_sweep(device, ref_mesh, ref_sha, ref_peak, n=1024,
                 f"(update_num exact, sdf bitwise); extract_mesh_sharded "
                 f"(fused) == the unsharded mesh")
         if mesh_shape == (4,):
-            t0 = time.perf_counter()
-            xla = extract_mesh_sharded(sh, grid, mesh, engine="xla")
-            xla_s = time.perf_counter() - t0
-            _require(_same_mesh(xla, ref_mesh),
-                     "sharded sweep (4,): engine='xla' mesh != unsharded")
-            del xla
-            line += f"; engine='xla' ({xla_s:.3f} s) == the same mesh"
             # the MC passes on the (4,) block with both halos
             halos = halo_exchange(sh)
             args, window = _windowed_block(sh, halos, grid, (1, 0, 0))
@@ -2625,7 +2583,7 @@ def phase_sharded_sweep(device, ref_mesh, ref_sha, ref_peak, n=1024,
             a_err = max(a_err,
                         float((st.sdf[zs] - ps).abs().nan_to_num(0).max()))
             ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 3)
-            bound = _warp_bound(a[0], a[1], imgs, n_views, linear)
+            bound = _warp_bound(a[0], imgs, n_views, linear)
             line += (f"; fused warp kernel == plain on planes [{zs.start}, "
                      f"{zs.stop}) of block {b} ({list(a[0].shape)} x "
                      f"{n_views} views: "
@@ -2700,7 +2658,7 @@ def phase_mesh_222(device, ref_mesh, n=512, n_views=36, n_sphere=256):
              "(2, 2, 2): fused warp kernel != plain on one block")
     a_err = float((ks - ps).abs().nan_to_num(0).max())
     ms = _cuda_ms(lambda: warp_fused.warp_fuse_planes(*a), 5)
-    bound = _warp_bound(a[0], a[1], imgs, n_views, linear)
+    bound = _warp_bound(a[0], imgs, n_views, linear)
     _phase("mesh-222", f"fused warp kernel == plain on block (1, 0, 1) "
            f"{list(a[0].shape)} x {n_views} views (update_num exact, sdf "
            f"bitwise): "
@@ -2834,22 +2792,12 @@ def worker(rank: int, port: int, tmp: str) -> int:
     out["launches"] = _read_counters(counters)
     del sh
 
-    mesh2 = make_device_mesh(shape=(2,), devices=[device])
-    sh2 = carve_views_warp_sharded(
-        VoxelGridState.create(grid, sharding=grid_sharding(mesh2)), grid,
-        *cam_args, opt=opt, linear=linear, mesh=mesh2)
-    t0 = time.perf_counter()
-    xla = extract_mesh_sharded(sh2, grid, mesh2, engine="xla",
-                               piece_dir=os.path.join(tmp, "pieces_xla"))
-    out["extract_xla_s"] = time.perf_counter() - t0
-    out["halo_xla"] = dict(halo_exchange.last)
-    for name, m in (("fused", fused), ("xla", xla)):
-        if rank == 0:
-            _require(m is not None, f"rank 0 got no {name} mesh")
-            np.savez(os.path.join(tmp, f"{name}.npz"), vertices=m.vertices,
-                     faces=m.faces)
-        else:
-            _require(m is None, f"rank {rank} got a {name} mesh")
+    if rank == 0:
+        _require(fused is not None, "rank 0 got no mesh")
+        np.savez(os.path.join(tmp, "fused.npz"), vertices=fused.vertices,
+                 faces=fused.faces)
+    else:
+        _require(fused is None, f"rank {rank} got a mesh")
     out["seconds"] = time.perf_counter() - t_start
     dist.barrier()
     dist.destroy_process_group()
@@ -2899,12 +2847,10 @@ def phase_two_ranks(ref_mesh, timeout_s: float = 300.0):
         for r in (0, 1):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-        for name in ("fused", "xla"):
-            with np.load(os.path.join(tmp, f"{name}.npz")) as z:
-                got = Mesh(vertices=z["vertices"], faces=z["faces"])
-            _require(_same_mesh(got, ref_mesh),
-                     f"two ranks: rank 0's {name} mesh != the unsharded "
-                     f"turntable's")
+        with np.load(os.path.join(tmp, "fused.npz")) as z:
+            got = Mesh(vertices=z["vertices"], faces=z["faces"])
+        _require(_same_mesh(got, ref_mesh),
+                 "two ranks: rank 0's mesh != the unsharded turntable's")
     wall = time.perf_counter() - t0
     r0, r1 = ranks
     launches = {k: r0["launches"][k] + r1["launches"][k]
@@ -2919,14 +2865,11 @@ def phase_two_ranks(ref_mesh, timeout_s: float = 300.0):
            f"(each rank 2 blocks [256, 256, 512]): blocks == the dense "
            f"carve, per-process checkpoints round-trip "
            f"({r0['checkpoint_s']:.2f} / {r1['checkpoint_s']:.2f} s), rank "
-           f"0's fused mesh and engine='xla' mesh on a (2,) mesh == the "
-           f"unsharded turntable's byte for byte, rank 1 got None; "
-           f"transport: {r0['halo']['transport']}; halo exchange "
+           f"0's mesh == the unsharded turntable's byte for byte, rank 1 "
+           f"got None; transport: {r0['halo']['transport']}; halo exchange "
            f"{r0['halo']['bytes']} bytes sent by rank 0 in "
-           f"{r0['halo']['ms']:.3f} ms ((2,) mesh: "
-           f"{r0['halo_xla']['bytes']} bytes, {r0['halo_xla']['ms']:.3f} "
-           f"ms); extract fused {r0['extract_fused_s']:.3f} s, xla "
-           f"{r0['extract_xla_s']:.3f} s; launches {launches}; workers "
+           f"{r0['halo']['ms']:.3f} ms; extract "
+           f"{r0['extract_fused_s']:.3f} s; launches {launches}; workers "
            f"{r0['seconds']:.1f} / {r1['seconds']:.1f} s, phase wall "
            f"{wall:.1f} s")
     return launches
@@ -2990,7 +2933,7 @@ def main() -> int:
         device)
     c_blocked_launches, c_blocked_err = phase_blocked_uhd(device)
     bench_launches = phase_bench(device)
-    phase_xla_checkpoint(device)
+    phase_checkpoint(device)
     b_window_err = phase_mc_windows(device)
     sharded_launches, a_sharded_err, b_sharded_err = phase_sharded_sweep(
         device, *sweep_ref)

@@ -5,7 +5,7 @@ case).
 Bars. Within the port everything is exact: a block's fusion is the dense
 engine restricted to the block (update_num equal, sdf bitwise, both
 engines, with a ROI), and sharded marching cubes gives the dense mesh
-byte for byte through both engines (vertex and face order included).
+byte for byte (vertex and face order included).
 Against the JAX package on its virtual 8-device mesh, on the same numpy
 inputs, the bars are the dense engines' own (ROADMAP Queue 3; sharding
 adds nothing to them, since each package's sharded result is its dense
@@ -174,26 +174,28 @@ def _random_state(shape, seed, invalid=0.05, updated=0.9, border=True):
     return sdf, un, spec
 
 
-@pytest.mark.parametrize("engine", ["fused", "xla"])
-@pytest.mark.parametrize("shape", Z_MESHES, ids=str)
-def test_sharded_mc_equals_dense(shape, engine):
-    sdf, un, spec = _random_state((16, 12, 20), 5, invalid=0.0, updated=1.0)
-    grid, state = tgrid.GridSpec(*spec), tgrid.state_from_numpy(sdf, un, "cpu")
-    sh = tpar.extract_mesh_sharded(state, grid, _mesh(shape), engine=engine)
-    _assert_same_mesh(sh, extract_mesh(state, grid))
-
-
-@pytest.mark.parametrize("engine", ["fused", "xla"])
 @pytest.mark.parametrize("linear_interp", [True, False],
                          ids=["linear", "nointerp"])
-def test_sharded_mc_exact_equality_with_invalids(linear_interp, engine):
+@pytest.mark.parametrize("shape", Z_MESHES, ids=str)
+def test_sharded_mc_equals_dense(shape, linear_interp):
+    sdf, un, spec = _random_state((16, 12, 20), 5, invalid=0.0, updated=1.0)
+    grid, state = tgrid.GridSpec(*spec), tgrid.state_from_numpy(sdf, un, "cpu")
+    sh = tpar.extract_mesh_sharded(state, grid, _mesh(shape),
+                                   linear_interp=linear_interp)
+    _assert_same_mesh(sh, extract_mesh(state, grid,
+                                       linear_interp=linear_interp))
+
+
+@pytest.mark.parametrize("shape", [(2,), (3,), (4,)], ids=str)
+@pytest.mark.parametrize("linear_interp", [True, False],
+                         ids=["linear", "nointerp"])
+def test_sharded_mc_exact_equality_with_invalids(linear_interp, shape):
     sdf, un, spec = _random_state((12, 9, 10), 11, invalid=0.15,
                                   border=False)
     grid, state = tgrid.GridSpec(*spec), tgrid.state_from_numpy(sdf, un, "cpu")
-    dense = extract_mesh(state, grid, linear_interp=linear_interp,
-                         engine="xla")
-    sh = tpar.extract_mesh_sharded(state, grid, _mesh((4,)),
-                                   linear_interp=linear_interp, engine=engine)
+    dense = extract_mesh(state, grid, linear_interp=linear_interp)
+    sh = tpar.extract_mesh_sharded(state, grid, _mesh(shape),
+                                   linear_interp=linear_interp)
     _assert_same_mesh(sh, dense)
 
 
@@ -206,10 +208,8 @@ def test_sharded_mc_seams_watertight():
     sdf = (np.linalg.norm(c - center, axis=-1) - 6.0).astype(np.float32)
     state = tgrid.state_from_numpy(sdf, np.ones(sdf.shape, np.int32), "cpu")
     dense = extract_mesh(state, grid)
-    for shape, engine in (((8,), "xla"), ((8,), "fused"),
-                          ((2, 2, 2), "fused")):
-        sh = tpar.extract_mesh_sharded(state, grid, _mesh(shape),
-                                       engine=engine)
+    for shape in ((8,), (2, 2, 2)):
+        sh = tpar.extract_mesh_sharded(state, grid, _mesh(shape))
         e = np.concatenate([sh.faces[:, [0, 1]], sh.faces[:, [1, 2]],
                             sh.faces[:, [2, 0]]])
         _, counts = np.unique(np.sort(e, axis=1), axis=0, return_counts=True)
@@ -226,8 +226,7 @@ def test_multiaxis_fused_mc_equals_dense(shape, linear_interp):
     byte-identical mesh."""
     sdf, un, spec = _random_state((8, 12, 16), 17)
     grid, state = tgrid.GridSpec(*spec), tgrid.state_from_numpy(sdf, un, "cpu")
-    dense = extract_mesh(state, grid, linear_interp=linear_interp,
-                         engine="xla")
+    dense = extract_mesh(state, grid, linear_interp=linear_interp)
     mesh = _mesh(shape)
     sh = tpar.extract_mesh_fused_sharded(state, grid, mesh,
                                          linear_interp=linear_interp)
@@ -264,13 +263,9 @@ def test_halo_exchange_carries_edges_and_corners():
         2 * 1 * (4 * 6) * 6))       # x: slices [2 + 2, 4 + 2, 1]
 
 
-def test_multiaxis_xla_engine_raises():
+def test_sharded_extraction_refusals():
     grid = tgrid.GridSpec((0, 0, 0), (8.4, 8.4, 8.4), 1.0)
     state = tgrid.VoxelGridState.create(grid, "cpu")
-    with pytest.raises(ValueError, match="shards on z only"):
-        tpar.extract_mesh_sharded(state, grid, _mesh((2, 2)), engine="xla")
-    with pytest.raises(ValueError, match="z-axis meshes only"):
-        tpar.marching_cubes_sharded(state, grid, mesh=_mesh((2, 2)))
     with pytest.raises(ValueError, match="unknown engine"):
         tpar.extract_mesh_sharded(state, grid, _mesh((2,)), engine="pallas")
     cut = tgrid.VoxelGridState.create(
@@ -279,23 +274,40 @@ def test_multiaxis_xla_engine_raises():
         tpar.extract_mesh_sharded(cut, grid, _mesh((4,)))
 
 
-def test_sharded_xla_engine_walks_large_blocks_in_slabs(monkeypatch):
-    """A block past the dense routine's budget is emitted z-slab by
-    z-slab, and the mesh does not change."""
-    from vacancy_tpu_torch.parallel import sharded
-
-    sdf, un, spec = _random_state((24, 12, 16), 31)
+def test_marching_cubes_sharded_is_the_fused_routine():
+    """The JAX package's name gives the fused routine's streams."""
+    sdf, un, spec = _random_state((8, 12, 16), 17)
     grid, state = tgrid.GridSpec(*spec), tgrid.state_from_numpy(sdf, un, "cpu")
-    dense = extract_mesh(state, grid)
-    monkeypatch.setattr(sharded, "_DENSE_MAX_VOXELS", 12 * 16 * 5)
-    from vacancy_tpu_torch.ops import marching_cubes
+    mesh = _mesh((2, 2))
+    got = tpar.marching_cubes_sharded(state, grid, mesh=mesh)
+    want = tpar.marching_cubes_fused_sharded(state, grid, mesh=mesh)
+    assert sorted(got) == sorted(want) and len(got) == 4
+    for b in want:
+        for g, w in zip(got[b].as_tuple(), want[b].as_tuple()):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert sum(len(st.c_lin) for st in got.values()) > 0
 
-    monkeypatch.setattr(marching_cubes, "_DENSE_MAX_VOXELS", 12 * 16 * 5)
-    mesh = _mesh((3,))
-    slabs = tpar.marching_cubes_sharded(state, grid, mesh=mesh)
-    assert all(len(s) > 1 for s in slabs.values())
-    _assert_same_mesh(
-        tpar.extract_mesh_sharded(state, grid, mesh, engine="xla"), dense)
+
+@pytest.mark.parametrize("engine", ["auto", "fused", "xla"])
+def test_engine_names_give_one_mesh(engine):
+    """Each of the JAX package's engine names gives the one engine's
+    mesh, byte for byte: through the facade (dense and on a mesh),
+    ``extract_mesh`` and ``extract_mesh_sharded``."""
+    opt, cams, masks = facade_inputs(16, 3, 64, 48, "cpu")
+    dense = VoxelCarver(opt, "cpu")
+    assert dense.init()
+    dense.carve_batch(cams, masks, engine="warp")
+    mesh = _mesh((2,))
+    cut = VoxelCarver(opt)
+    assert cut.init(sharding=tpar.grid_sharding(mesh))
+    cut.carve_batch(cams, masks, engine="warp")
+    ref = extract_mesh(dense.state, dense.grid)
+    for got in (dense.extract_iso_surface(engine=engine),
+                cut.extract_iso_surface(engine=engine),
+                extract_mesh(dense.state, dense.grid, engine=engine),
+                tpar.extract_mesh_sharded(dense.state, dense.grid, mesh,
+                                          engine=engine)):
+        _assert_same_mesh(got, ref)
 
 
 def test_sharded_extraction_launches_no_kernel_on_cpu_blocks():

@@ -547,9 +547,10 @@ class VoxelCarver:
     ) -> Mesh:
         """Marching-cubes extraction (marching_cubes.cc:63-228 semantics).
 
-        engine: "auto" and "fused" take the fused MC kernel (its plain
-        version on a CPU state); "xla" the dense or z-slab routines in
-        plain torch (``ops/marching_cubes.py``). Both give the same mesh."""
+        The port has one engine, the fused MC kernel (its plain version on
+        a CPU state). ``engine`` is any of the JAX package's names in
+        ``ops.marching_cubes.ENGINES``, which all give that mesh; another
+        name raises ``ValueError``."""
         if debug:
             self._assert_state_finite("extract: state sdf")
         if self._mesh is not None:

@@ -15,13 +15,12 @@ can shard and block counts are not capped by nz:
     update_num, cube validity needs both -- so later axes carry earlier
     axes' halos along and the edge and corner voxels of the block arrive
     without any diagonal sends. Each block is then extracted with its
-    halo: through the fused MC kernel with its emission windows and
-    global-id bases (``marching_cubes_fused_sharded``; any mesh rank) or
-    the torch slab-emission core (``ops.marching_cubes._slab_emit``,
-    z-only meshes). Vertices are keyed by their canonical edge's global
-    owner id and faces name vertices by global edge key, so the host
-    assembly reproduces the dense mesh EXACTLY -- same vertex order, same
-    face order, watertight seams by construction.
+    halo through the fused MC kernel with its emission windows and
+    global-id bases (``marching_cubes_fused_sharded``; any mesh rank),
+    the port's one marching-cubes engine. Vertices are keyed by their
+    canonical edge's global owner id and faces name vertices by global
+    edge key, so the host assembly reproduces the dense mesh EXACTLY --
+    same vertex order, same face order, watertight seams by construction.
 
 Where a neighbour block lives decides how its boundary slice travels: on
 the same process, a device copy (peer to peer between two cards); on
@@ -50,13 +49,7 @@ from ..grid import GridSpec, ShardedGridState, VoxelGridState
 from ..mesh import Mesh as TriMesh
 from ..ops.exact_fused import exact_fold
 from ..ops.fusion_warp import warp_carve_centers
-from ..ops.marching_cubes import (
-    _DENSE_MAX_VOXELS,
-    _assemble_slab_parts,
-    _pick_slab_nz,
-    _slab_emit,
-    _stack_host,
-)
+from ..ops.marching_cubes import check_engine
 from ..ops.mc_fused import (
     McStreams,
     assemble_fused_streams,
@@ -461,66 +454,6 @@ def _extended_block(sh: ShardedGridState, halos, block: Block):
 # ----------------------------------------------------------------------
 
 
-def marching_cubes_sharded(
-    state,
-    grid: GridSpec,
-    iso_level: float = 0.0,
-    linear_interp: bool = True,
-    mesh: Optional[BlockMesh] = None,
-) -> Dict[Block, tuple]:
-    """Marching cubes over a z-sharded grid with explicit halo exchange.
-
-    Each block runs the SAME slab-emission core as the single-device
-    blocked routine (``ops.marching_cubes._slab_emit``) on its z block
-    plus a one-voxel halo plane from each z neighbour (sdf AND update_num
-    -- cube validity needs both). Blocks emit per-axis compacted vertices
-    keyed by global owner id plus faces as global edge keys, so the host
-    assembly (``_assemble_slab_parts``) produces a mesh IDENTICAL (same
-    vertex and face order) to the dense single-device extraction.
-
-    Returns, per local block, a list of ``marching_cubes_slab``'s tuples
-    in ascending z: one for the whole block, or one per z-slab of it
-    where the block is past the dense routine's budget
-    (``_DENSE_MAX_VOXELS``: the core holds some twenty slab-shaped
-    temporaries). z-axis meshes only -- multi-axis (z, y[, x]) meshes route through the fused
-    kernel (``marching_cubes_fused_sharded``), which carries the y/x
-    emission windows."""
-    if _grid_parts(mesh)[1:] != (1, 1):
-        raise ValueError(
-            "marching_cubes_sharded supports z-axis meshes only; use "
-            "extract_mesh_fused_sharded for (z, y[, x]) meshes"
-        )
-    sh = _as_sharded(state, mesh)
-    pz = sh.sharding.parts[0]
-    lz = sh.shape[0] // pz
-    halos = halo_exchange(sh)
-    out = {}
-    for b in sh.blocks:
-        sdf_ext, un_ext = _extended_block(sh, halos, b)
-        cx, cy, cz = _extended_centers(grid, sh, b, sdf_ext.device)
-        # global z of local plane 0: the halo of a sharded z axis, plane 0
-        # itself where the mesh has one block
-        z0 = b[0] * lz - (1 if pz > 1 else 0)
-        n_loc, ny, nx = sdf_ext.shape
-        slab = lz
-        if n_loc * ny * nx > _DENSE_MAX_VOXELS:
-            slab = _pick_slab_nz(lz, ny, nx)
-        out[b] = []
-        for own_lo in range(b[0] * lz, (b[0] + 1) * lz, slab):
-            own_hi = min(own_lo + slab, (b[0] + 1) * lz)
-            # the slab's planes with one more on each side where the
-            # extended block has it; _slab_emit numbers its planes from
-            # global slice_lo - 1
-            lo = max(own_lo - 1 - z0, 0)
-            hi = min(own_hi + 1 - z0, n_loc)
-            out[b].append(_slab_emit(
-                sdf_ext[lo:hi], un_ext[lo:hi], (cx, cy, cz[lo:hi]),
-                z0 + lo + 1, own_lo, own_hi, float(iso_level),
-                bool(linear_interp)))
-        del sdf_ext, un_ext
-    return out
-
-
 def marching_cubes_fused_sharded(
     state,
     grid: GridSpec,
@@ -561,6 +494,15 @@ def marching_cubes_fused_sharded(
     return out
 
 
+def marching_cubes_sharded(state, grid: GridSpec, iso_level: float = 0.0,
+                           linear_interp: bool = True,
+                           mesh: Optional[BlockMesh] = None):
+    """The JAX package's name: the port has one engine, so this is
+    ``marching_cubes_fused_sharded``."""
+    return marching_cubes_fused_sharded(state, grid, iso_level,
+                                        linear_interp, mesh)
+
+
 def block_window(sharding, shape_zyx, block: Block) -> dict:
     """``marching_cubes_fused``'s window keywords for one halo-extended
     block: on each sharded axis the emission window skips the halo at
@@ -591,7 +533,7 @@ def extract_mesh_fused_sharded(
     linear_interp: bool = True,
     piece_dir: Optional[str] = None,
 ) -> Optional[TriMesh]:
-    """Sharded fused-kernel MC -> the dense routine's exact mesh.
+    """Sharded fused-kernel MC -> the unsharded extraction's exact mesh.
 
     Single process: copies the per-block streams to the host and
     assembles them. Multi-process: every process writes its blocks' exact
@@ -611,14 +553,13 @@ def extract_mesh_fused_sharded(
     _, ny, nx = sh.shape
     multi = parts[1] > 1 or parts[2] > 1
     if mesh.world_size > 1:
-        host = _exchange_pieces(
-            mesh, piece_dir, "mc_fused_pieces",
-            {f"k{k}_s{i}": s for k, ss in host.items()
-             for i, s in enumerate(ss)},
-            lambda pieces: {k: [pieces[f"k{k}_s{i}"] for i in range(8)]
-                            for k in range(mesh.size)})
-        if host is None:
+        pieces = _exchange_pieces(
+            mesh, piece_dir, {f"k{k}_s{i}": s for k, ss in host.items()
+                              for i, s in enumerate(ss)})
+        if pieces is None:
             return None
+        host = {k: [pieces[f"k{k}_s{i}"] for i in range(8)]
+                for k in range(mesh.size)}
     cat = [np.concatenate([host[k][i] for k in range(mesh.size)])
            for i in range(8)]
     return assemble_fused_streams(
@@ -627,28 +568,27 @@ def extract_mesh_fused_sharded(
         grid, sort=multi)
 
 
-def _exchange_pieces(mesh: BlockMesh, piece_dir: str, stem: str,
-                     payload: dict, collect):
+def _exchange_pieces(mesh: BlockMesh, piece_dir: str, payload: dict):
     """Multi-process finish: write this process's pieces to
-    ``piece_dir/{stem}_proc{rank}.npz``, barrier, and on process 0 read
-    every process's file and return ``collect(pieces)`` (None elsewhere).
-    The trailing barrier keeps a process that enters a second extraction
-    from rewriting its file while process 0 still reads the first."""
+    ``piece_dir/mc_fused_pieces_proc{rank}.npz``, barrier, and on process
+    0 read every process's file and return their arrays by key (None
+    elsewhere). The trailing barrier keeps a process that enters a second
+    extraction from rewriting its file while process 0 still reads the
+    first."""
     os.makedirs(piece_dir, exist_ok=True)
-    np.savez(os.path.join(piece_dir, f"{stem}_proc{mesh.rank}.npz"),
+    np.savez(os.path.join(piece_dir, f"mc_fused_pieces_proc{mesh.rank}.npz"),
              **payload)
     _barrier(mesh)
-    out = None
+    pieces = None
     if mesh.rank == 0:
         pieces = {}
         for p in range(mesh.world_size):
-            f = os.path.join(piece_dir, f"{stem}_proc{p}.npz")
+            f = os.path.join(piece_dir, f"mc_fused_pieces_proc{p}.npz")
             with np.load(f, allow_pickle=False) as z:
                 for key in z.files:
                     pieces[key] = z[key]
-        out = collect(pieces)
     _barrier(mesh)
-    return out
+    return pieces
 
 
 def extract_mesh_sharded(
@@ -660,56 +600,20 @@ def extract_mesh_sharded(
     piece_dir: Optional[str] = None,
     engine: str = "auto",
 ) -> Optional[TriMesh]:
-    """Host wrapper: sharded MC -> the dense routine's exact mesh.
-
-    engine="auto" and "fused" run the FUSED kernel per block
-    (``extract_mesh_fused_sharded``) -- in any process count; "xla"
-    forces the torch slab-emission core. Multi-axis (z, y[, x]) meshes
-    always route through the fused kernel (it carries the y/x emission
-    windows); "xla" on one raises.
+    """Host wrapper: sharded MC -> the unsharded extraction's exact mesh,
+    through ``extract_mesh_fused_sharded`` in any process count and on any
+    grid mesh. ``engine`` is any of ``ops.marching_cubes.ENGINES``, the JAX
+    package's names, which all name the one fused engine.
 
     Single process: gathers every block directly. Multi-process: each
-    process writes ONLY its own blocks' emissions as a piece file under
+    process writes ONLY its own blocks' streams as a piece file under
     ``piece_dir`` (a filesystem all hosts can reach), processes barrier,
     and process 0 assembles and returns the mesh (other processes return
-    None). Both engines emit the dense routine's exact mesh either way."""
-    pz, py, px = _grid_parts(mesh)
-    if engine not in ("auto", "fused", "xla"):
-        raise ValueError(f"unknown engine {engine!r}")
-    if (py > 1 or px > 1) and engine == "xla":
-        raise ValueError(
-            "the XLA slab core shards on z only; a (z, y[, x]) mesh "
-            "needs the fused engine"
-        )
-    if engine != "xla":
-        return extract_mesh_fused_sharded(
-            state, grid, mesh, iso_level=iso_level,
-            linear_interp=linear_interp, piece_dir=piece_dir)
-    _check_pieces(mesh, piece_dir)
-    sh = _as_sharded(state, mesh)
-    emitted = marching_cubes_sharded(
-        sh, grid, iso_level, linear_interp, mesh=mesh)
-    parts = {}
-    for b, slabs in emitted.items():
-        k = sh.sharding.index(b)
-        for a in range(3):
-            parts[f"k{k}_pos{a}"] = np.concatenate(
-                [_stack_host(vp[a]) for _, vp, _, _, _, _ in slabs])
-            parts[f"k{k}_lin{a}"] = np.concatenate(
-                [vl[a].cpu().numpy() for _, _, vl, _, _, _ in slabs])
-        parts[f"k{k}_fax"] = np.concatenate(
-            [_stack_host(fa).astype(np.int32) for *_, fa, _ in slabs])
-        parts[f"k{k}_flin"] = np.concatenate(
-            [_stack_host(fl) for *_, fl in slabs])
-    if mesh.world_size > 1:
-        parts = _exchange_pieces(mesh, piece_dir, "mc_pieces", parts,
-                                 lambda pieces: pieces)
-        if parts is None:
-            return None
-    return _assemble_slab_parts(
-        [[parts[f"k{k}_pos{a}"] for k in range(pz)] for a in range(3)],
-        [[parts[f"k{k}_lin{a}"] for k in range(pz)] for a in range(3)],
-        [(parts[f"k{k}_fax"], parts[f"k{k}_flin"]) for k in range(pz)])
+    None)."""
+    check_engine(engine)
+    return extract_mesh_fused_sharded(
+        state, grid, mesh, iso_level=iso_level, linear_interp=linear_interp,
+        piece_dir=piece_dir)
 
 
 # ----------------------------------------------------------------------
