@@ -28,6 +28,7 @@ from vacancy_tpu_torch.ops import marching_cubes as tmc
 from vacancy_tpu_torch.ops import mc_fused
 from vacancy_tpu_torch.ops.marching_cubes import extract_mesh as t_extract
 from vacancy_tpu_torch.ops.mc_tables import TRI_COUNT
+from vacancy_tpu_torch.ops.mesh_assembly import assemble_on_card
 
 
 def _random_state(nz, ny, nx, seed=5, p_invalid=0.05, p_updated=0.9):
@@ -243,6 +244,20 @@ def test_windowed_streams_match_jax_slab_counts(nz, slab, own, slice_lo,
         assert bool((lin[1:] > lin[:-1]).all())
         assert bool(((lin // plane >= own[0]) & (lin // plane < own[1]))
                     .all())
+
+
+@pytest.mark.parametrize("linear", [True, False], ids=["linear", "nointerp"])
+@pytest.mark.parametrize("case", ["sphere", "random"])
+def test_extract_mesh_on_a_cpu_state_keeps_the_host_assembly(case, linear):
+    """A CPU state never reaches the on-card assembly, and its mesh is
+    the JAX routine's."""
+    state = {"sphere": _sphere_state(),
+             "random": _random_state(12, 15, 11, seed=31)}[case]
+    before = assemble_on_card.meshes
+    t, j = _both_meshes(*state, linear)
+    assert assemble_on_card.meshes == before
+    assert j.num_faces > 0
+    _assert_same_mesh(t, j)
 
 
 def test_empty_grid_and_unknown_engine():

@@ -51,6 +51,11 @@ _SIGNATURES = {
     "vt_probe_scale": [_P, _P, _I, _P],
     "vt_exact_fold": [_P] * 9 + [_I] * 16 + [_F, _F, _P],
     "vt_exact_tiling": [_I],
+    "vt_mesh_layout": [_I],
+    "vt_mesh_vertices": [_P, _P, _I] * 3 + [_P] * 3 + [_I, _I, _P, _P],
+    "vt_mesh_face_offsets": [_P, _I] + [_P] * 4,
+    "vt_mesh_faces": ([_P, _P, _I, _P, _P] + [_P, _I] * 3
+                      + [_I, _I, _P, _P]),
 }
 
 
@@ -122,7 +127,8 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """The built library with every entry point's argtypes declared (each
-    returns an int: a cudaError_t, or a count for ``vt_mc_tiles``)."""
+    returns an int: a cudaError_t, or a count for ``vt_mc_tiles`` and the
+    other entry points that size a launch or a table)."""
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

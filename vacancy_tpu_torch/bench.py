@@ -8,10 +8,11 @@ Fuses 24 views into a 512^3 grid with the warp engine (the fused warp
 kernel, ``csrc/warp_fused.cu``), ``iters`` times chained and ending in a
 device synchronize, and reports steady-state voxel-view fusions per
 second. The marching-cubes figures run ``extract_mesh`` (the fused MC
-kernel plus the host assembly) on sphere TSDFs: 256^3, and 512^3 with a
-realistic and a near-empty sphere, since extraction cost tracks surface
-occupancy. Before anything is timed, a probe kernel (``csrc/probe.cu``)
-shows that the kernel library builds, launches and returns.
+kernel, the mesh's assembly and its copy to the host) on sphere TSDFs:
+256^3, and 512^3 with a realistic and a near-empty sphere, since
+extraction cost tracks surface occupancy. Before anything is timed, a
+probe kernel (``csrc/probe.cu``) shows that the kernel library builds,
+launches and returns.
 
 Prints exactly one JSON line. Without a CUDA device (and without
 ``--device cpu``), or when the probe fails, the line carries
@@ -168,8 +169,8 @@ def _sphere_state(n, radius=0.8, device="cuda"):
 
 
 def run_mc_bench(n=256, iters=3, radius=0.8, device="cuda"):
-    """Marching-cubes extraction (kernel, transfer and host assembly) of a
-    closed-surface sphere TSDF at n^3. Returns (cubes/s over the full
+    """Marching-cubes extraction (kernel, assembly and the mesh's transfer)
+    of a closed-surface sphere TSDF at n^3. Returns (cubes/s over the full
     lattice, best warm seconds, vertices)."""
     device = torch.device(device)
     grid, state = _sphere_state(n, radius, device)

@@ -25,12 +25,17 @@ which nothing is emitted (every mask still reads the halo voxels), and
 turn the linear ids into GLOBAL ones. With the defaults the streams are
 the unsharded ones.
 
-The triangle table never enters the kernel: the host expands each active
-cube's faces from its (lin, case) pair and resolves each corner's
-canonical-edge key against the per-axis vertex streams by binary search
-(``expand_faces``: the C++ single pass of ``io/native.py``, with the numpy
-``_expand_faces`` as its plain version), so vertex and face order equal
-the JAX package's exactly.
+The triangle table never enters kernel B: the streams carry each active
+cube's (lin, case) pair, and the faces are expanded from it afterwards,
+each corner's canonical-edge key resolved against the per-axis vertex
+streams by binary search, so vertex and face order equal the JAX
+package's exactly. On a CUDA state the kernels of ``ops/mesh_assembly.py``
+do that on the card. On the host ``assemble_fused_streams`` does it, for
+a CPU state and for the sharded extraction (``parallel/sharded.py``),
+whose streams cross processes as host pieces: its faces come from
+``expand_faces`` (the C++ single pass of ``io/native.py``, with the numpy
+``_expand_faces`` as its plain version), and with ``native=False`` it is
+the plain version the card's assembly is held against.
 """
 
 from __future__ import annotations
