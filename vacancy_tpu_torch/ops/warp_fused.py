@@ -195,7 +195,8 @@ def warp_fuse_planes(
 
     CPU tensors take the plain two-pass version. CUDA tensors launch the
     kernel once for all views (``warp_fuse_planes.launches`` counts
-    those launches), whatever their height, or raise: on a build
+    those launches, ``warp_fuse_planes.in_place`` those whose outputs are
+    their inputs), whatever their height, or raise: on a build
     failure, on inputs the kernel does not take (ValueError, from
     ``fused_plan``), or on a non-zero cudaError_t from the launch."""
     if sdf.device.type == "cpu":
@@ -263,7 +264,11 @@ def warp_fuse_planes(
     )
     _kernels.check(err, "warp_fused kernel launch")
     warp_fuse_planes.launches += 1
+    if (out_sdf.data_ptr(), out_un.data_ptr()) == (sdf.data_ptr(),
+                                                   un.data_ptr()):
+        warp_fuse_planes.in_place += 1
     return out_sdf, out_un
 
 
 warp_fuse_planes.launches = 0
+warp_fuse_planes.in_place = 0

@@ -353,7 +353,9 @@ def run_sweep(
     state = do_carve()
     carve_cold_s = time.perf_counter() - t0
     # free the cold state before the warm rerun: two 1024^3 states are
-    # 17 GB that nothing needs
+    # 17 GB that nothing needs (VoxelCarver.init likewise lets go of the
+    # state it holds before it allocates the next, and its warp carve
+    # writes over that one state)
     del state
     t0 = time.perf_counter()
     state = do_carve()
