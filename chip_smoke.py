@@ -143,10 +143,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      the warp kernel never, and leaves E's state. E and kernel A at the
      same shape and options timed in turns (CUDA events), E beside its
      bound, the plain fold once; E's registers, shared memory and spills.
+ 21. the 2D SDF's kernel set S vs its plain version (float bits equal) on
+     the cells' masks, min-max normalised with the band 0.05: 36 turntable
+     views of 320 x 240 and 36 views of 3840 x 2160; the facade's UHD carve
+     transforms its 36 views through S (3 launches). S and the plain
+     version timed in turns (CUDA events), S beside its bound (masks read
+     once, images written once); S's registers and shared memory.
 Then one JSON line of per-kernel results (A's, B's and the scan's
 launches summed over phases 12 and 17; C's from phase 13's two-pass run
 of carve_views_warp_blocked, its path in this script since the fused warp
-kernel takes the UHD views; E's on phase 20's facade carve), and as the
+kernel takes the UHD views; E's on phase 20's facade carve; S's on phase
+21's), and as the
 last line {"ok": true, "device": {...}}. No JAX is imported.
 
     python3 chip_smoke.py --interp-only [--compare-source FILE]
@@ -1591,6 +1598,70 @@ def phase_exact(device):
     return facade_launches, e_err, e_ms, plain_ms, bound
 
 
+def phase_sdf2d(device):
+    """Kernel set S against its plain version at the cells' mask shapes,
+    bitwise and timed; the facade's UHD carve transforms its views
+    through S."""
+    import torch
+
+    from vacancy_tpu_torch import VoxelCarver
+    from vacancy_tpu_torch.ops.sdf2d import (make_signed_distance_field,
+                                             signed_distance_field_plain)
+    from vacancy_tpu_torch.ops.sdf2d_fused import sdf2d_fused
+    from vacancy_tpu_torch.pipeline import facade_inputs, turntable_masks
+
+    n_views = 36
+    kw = dict(use_truncation=True, truncation_band=0.05)
+    _, qvga = turntable_masks(n_views, device)
+    opt, cams, uhd = facade_inputs(512, n_views, 3840, 2160, device)
+    results = {}
+    for name, masks in (("qvga", qvga), ("uhd", uhd)):
+        before = sdf2d_fused.launches
+        got = make_signed_distance_field(masks, **kw)
+        want = signed_distance_field_plain(masks, **kw)
+        torch.cuda.synchronize()
+        _require(sdf2d_fused.launches == before + 3, f"S {name}: not 3 "
+                 f"launches")
+        _require(torch.equal(_bits(got), _bits(want)),
+                 f"S {name}: != plain")
+        inside = float((got < 0).float().mean())
+        del got, want
+        bound = _bound(masks.numel() * (1 + 4), 0)
+        rows = []
+        for _ in range(2):  # S, plain, plain, S
+            s_ms = _cuda_ms(lambda: make_signed_distance_field(masks, **kw),
+                            20)
+            p_ms = _cuda_ms(lambda: signed_distance_field_plain(masks, **kw),
+                            3)
+            rows.append((s_ms, p_ms))
+        s_ms = min(r[0] for r in rows)
+        results[name] = (s_ms, min(r[1] for r in rows), bound)
+        h, w = masks.shape[1:]
+        _phase("sdf2d", f"{n_views} x {w}x{h}: S == plain (bits; "
+               f"{inside:.3f} of pixels inside); S "
+               f"{', '.join(f'{r[0]:.4f}' for r in rows)} ms "
+               f"({bound[0] / s_ms:.2%} of the {bound[0]:.4f} ms bound by "
+               f"{bound[1]}); plain {', '.join(f'{r[1]:.3f}' for r in rows)}"
+               f" ms")
+
+    carver = VoxelCarver(opt, device)
+    _require(carver.init(), "VoxelCarver.init")
+    sdf2d_fused.launches = sdf2d_fused.images = 0
+    carver.carve_batch(cams, uhd, engine="warp")
+    torch.cuda.synchronize()
+    launches = sdf2d_fused.launches
+    _require((launches, sdf2d_fused.images) == (3, n_views),
+             "the UHD facade carve: need S's 3 launches for 36 views")
+    del carver
+    usage = {k: _usage_of(k) for k in ("sdf2d_columns_kernel",
+                                       "sdf2d_rows_kernel",
+                                       "sdf2d_finish_kernel")}
+    _phase("sdf2d", "the UHD facade carve: S 3 launches, 36 views; "
+           + "; ".join(f"{k} {r} registers, {m} bytes of static shared "
+                       f"memory" for k, (r, m) in usage.items()))
+    return launches, results
+
+
 def phase_probe(device):
     """Kernel D against its plain version, and its first launch's time."""
     import numpy as np
@@ -2941,6 +3012,7 @@ def main() -> int:
     _, a_222_err, b_222_err = phase_mesh_222(device, turntable_mesh)
     phase_two_ranks(turntable_mesh)
     e_launches, e_err, e_ms, e_plain, e_bound = phase_exact(device)
+    s_launches, s_times = phase_sdf2d(device)
 
     def on_sweeps(name):
         """Launches on the unsharded sweep and both sharded sweeps."""
@@ -2982,6 +3054,9 @@ def main() -> int:
         entry("exact_fused", "exact_fused.cu",
               "none: vacancy_tpu/ops/fusion.py folds in plain jnp",
               e_launches, e_err, e_ms, e_plain, e_bound),
+        entry("sdf2d_fused", "sdf2d_fused.cu",
+              "none: vacancy_tpu/ops/sdf2d.py computes the 2D SDF with XLA "
+              "scans", s_launches, 0.0, *s_times["uhd"]),
     ]
     _require(all(k["launches"] > 0 for k in kernels),
              f"a kernel was not launched on its path: {kernels}")

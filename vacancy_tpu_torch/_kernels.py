@@ -56,6 +56,7 @@ _SIGNATURES = {
     "vt_mesh_face_offsets": [_P, _I] + [_P] * 4,
     "vt_mesh_faces": ([_P, _P, _I, _P, _P] + [_P, _I] * 3
                       + [_I, _I, _P, _P]),
+    "vt_sdf2d": [_P] * 4 + [_I] * 10 + [_F] * 3 + [_P],
 }
 
 

@@ -10,6 +10,12 @@ here as ``torch.cummin`` along one axis of a ``[V, H, W]`` stack. All
 values are small integers or FLT_MAX, exact in f32, so the result is
 bitwise the JAX package's. Masked pixels carry FLT_MAX (FLT_MAX + small
 rounds back to FLT_MAX, as in the reference's guarded scans).
+
+That plain code serves tensors off the card. On a CUDA tensor
+``make_signed_distance_field`` launches kernel set S
+(``ops/sdf2d_fused``, ``csrc/sdf2d_fused.cu``), three launches a call
+and bit for bit this plain version; ``distance_transform_l1`` stays
+plain on every device.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import INVALID_SDF
+from . import sdf2d_fused  # which imports this module: use at call time
 
 _FLT_MAX = float(np.finfo(np.float32).max)
 _FLT_TINY = float(np.finfo(np.float32).tiny)
@@ -94,7 +101,31 @@ def make_signed_distance_field(
     ``d <= -band`` to INVALID_SDF and clamps to ``min(1, d / band)``
     (``min(band, d)`` in metric mode). Inputs are uint8 (255 =
     foreground) or bool; the result is f32 on the masks' device.
+
+    CUDA tensors go through kernel set S (``sdf2d_fused.sdf2d_fused``),
+    which raises for what it does not take; other tensors take
+    ``signed_distance_field_plain``.
     """
+    if mask.device.type == "cuda":
+        return sdf2d_fused.sdf2d_fused(mask, roi, minmax_normalize,
+                                       use_truncation, truncation_band,
+                                       sdf_scale)
+    return signed_distance_field_plain(mask, roi, minmax_normalize,
+                                       use_truncation, truncation_band,
+                                       sdf_scale)
+
+
+def signed_distance_field_plain(
+    mask: torch.Tensor,
+    roi: Optional[Tuple[int, int, int, int]] = None,
+    minmax_normalize: bool = True,
+    use_truncation: bool = False,
+    truncation_band: float = 0.1,
+    sdf_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """``make_signed_distance_field`` in plain PyTorch, on any device: the
+    plain version of kernel set S (``ops/sdf2d_fused``), which CPU tensors
+    take."""
     mask = _as_mask(mask)
     dev = mask.device
     h, w = mask.shape[-2:]
