@@ -1,7 +1,8 @@
 """Cells as data: every configuration, traffic mix, cell and metric is a
 file of its own, found by the name ``BENCHMARK.json`` gives it.
 
-    <root>/configs/<config>.json        a deployment: grid, rig, update
+    <root>/configs/<config>.json        a deployment: grid, rig (a layout
+                                        of ``scene.LAYOUTS``), update
                                         rule, and the reference it names
     <root>/traffic/<mix>.json           a traffic mix: the pool of frames,
                                         the facade calls of a request
@@ -21,6 +22,8 @@ import json
 import re
 from pathlib import Path
 from typing import Callable, Dict, Optional
+
+from . import scene
 
 ROOT = Path(__file__).resolve().parents[1]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -47,12 +50,16 @@ def _json(path: Path) -> dict:
 
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
-    """The cell ``name`` with its configuration and traffic mix."""
+    """The cell ``name`` with its configuration and traffic mix; raises
+    ``ValueError`` where the configuration's rig is not one that
+    ``scene.rig`` lays out."""
     w = _json(root / "workloads" / f"{_name('cell', name)}.json")
+    config = _json(root / "configs" / f"{_name('config', w['config'])}.json")
+    scene.check_rig(config["rig"])
     return Cell(
         name=name,
         chips=int(w["chips"]),
-        config=_json(root / "configs" / f"{_name('config', w['config'])}.json"),
+        config=config,
         traffic=_json(root / "traffic" / f"{_name('traffic', w['traffic'])}.json"),
         limits={k: float(v) for k, v in w["limits"].items()},
     )

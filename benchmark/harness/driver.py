@@ -113,9 +113,7 @@ def make_inputs(cell: Cell, seed: int, device):
     """((c2w, principal_point, focal_length) of the rig, the pool of
     frames: uint8 masks [V, H, W] on ``device``), all from ``seed``."""
     rig = cell.config["rig"]
-    c2w, pp, fl = scene.turntable_rig(
-        rig["views"], rig["width"], rig["height"], rig["radius"],
-        rig["fov_y_deg"], rig["elevation"])
+    c2w, pp, fl = scene.rig(rig)
     objects = scene.pool_objects(seed, pool_frames(cell.config, cell.traffic),
                                  cell.traffic["object"])
     pool = [scene.render_masks(c2w, pp, fl, rig["width"], rig["height"],
@@ -147,8 +145,11 @@ class Reservoir:
 class Facade:
     """The steps of a request run against one carver. On a CUDA device it
     also keeps the memory peak of the steps, less the device bytes that
-    the check's sample holds beside the carver's own state: the peak a
-    deployment, which keeps no samples, would reach."""
+    the check's sample holds beside the carver's own state, taken before
+    and after each step: the peak a deployment, which keeps no samples,
+    would reach. (The ``init`` after a sampled request lets go of the
+    state the sample keeps, which is the carver's own before the call and
+    not after it.)"""
 
     def __init__(self, carver, cell: Cell, inputs: dict, device):
         self.carver, self.cell, self.inputs = carver, cell, inputs
@@ -183,7 +184,8 @@ class Facade:
             if self.cuda:
                 peak = torch.cuda.max_memory_allocated(self.device)
                 self.process_peak = max(self.process_peak, peak)
-                self.peak = max(self.peak, peak - held)
+                self.peak = max(self.peak,
+                                peak - max(held, self._held(sample)))
             if "returns" in step:
                 outputs[step["returns"]] = value
         return spans, outputs

@@ -70,9 +70,11 @@ def state(carver):
 
 
 def launches() -> dict:
-    """The program's launch counters: kernel A, kernel C, and kernel B's
-    runs and passes."""
-    from vacancy_tpu_torch.ops import mc_fused, warp_fused, warp_gather
+    """The program's launch counters: kernel A, kernel C, kernel B's runs
+    and passes, kernel E, kernel set S (three launches a call), and the
+    meshes the mesh-assembly kernels build on the card."""
+    from vacancy_tpu_torch.ops import (exact_fused, mc_fused, mesh_assembly,
+                                       sdf2d_fused, warp_fused, warp_gather)
 
     return {
         "warp_fuse_planes": warp_fused.warp_fuse_planes.launches,
@@ -80,4 +82,7 @@ def launches() -> dict:
         "marching_cubes_fused": mc_fused.marching_cubes_fused.launches,
         "mc_tile_counts": mc_fused.mc_tile_counts.launches,
         "mc_scan": mc_fused.mc_scan.launches,
+        "exact_fold": exact_fused.exact_fold.launches,
+        "sdf2d_fused": sdf2d_fused.sdf2d_fused.launches,
+        "assemble_on_card": mesh_assembly.assemble_on_card.meshes,
     }
